@@ -7,19 +7,14 @@ chosen there to defeat trivial constant folding). Differences, documented:
 - the conv op is actually benchmarked here (the reference defines ``op_conv``
   at :141-155 but never runs it — dead flags ``-c``/``-b``, SURVEY.md §2a);
 - the bandwidth op is honest: the reference chains 10 ``jnp.copy`` (:157-163)
-  which XLA elides/fuses, so its "GB/s" overcounts by up to 10x; ours times a
-  Pallas HBM->VMEM->HBM streaming copy and counts read+write bytes actually
-  moved.
+  which XLA elides/fuses, so its "GB/s" overcounts by up to 10x; ours times
+  fused streaming passes and counts read+write bytes actually moved.
 """
 
 from __future__ import annotations
 
-
-import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def op_2d(a, b):
@@ -68,58 +63,23 @@ def op_fft_3d(a, precision):
 
 # -- honest bandwidth -----------------------------------------------------
 
-def _copy_kernel(src_ref, dst_ref):
-    dst_ref[...] = src_ref[...]
-
-
-def make_bandwidth_op(
-    n_elems: int,
-    dtype=jnp.float32,
-    mode: str = "stream",
-    chunk: int = 512 * 1024,
-    n_streams: int = 4,
-):
-    """HBM bandwidth op, counted as read + write of the full footprint.
-
-    ``stream`` (default): ``n_streams`` INDEPENDENT fused elementwise passes
-    ``x_i + 1`` over a tuple of buffers — one HBM read + one HBM write each,
-    impossible for XLA to elide when the outputs feed the next iteration.
-    The streams must be independent loop carries: a single carried buffer
-    serializes the timed loop's iterations on one kernel and leaves the HBM
-    pipeline bubbled between them (609 GB/s on v5e), while 4 independent
-    carries overlap and reach the machine (784 GB/s, above the 743 GB/s the
-    FFT roofline row proves — results/bw_probe.py). The op therefore takes
+def make_bandwidth_op(n_elems: int, dtype=jnp.float32, n_streams: int = 4):
+    """Device-memory bandwidth op, counted as read + write of the full
+    footprint: ``n_streams`` INDEPENDENT fused elementwise passes ``x_i + 1``
+    over a tuple of buffers — one read + one write each, impossible for XLA
+    to elide when the outputs feed the next iteration. The streams are
+    independent loop carries so that the timed loop's iterations can
+    overlap instead of serializing on one buffer. The op therefore takes
     and returns a TUPLE of arrays; the timed loop handles pytree carries.
-    ``pallas_copy``: explicit chunked VMEM round-trip copy kernel
-    (215 GB/s — the DMA round-trip loses to XLA's streaming pipeline).
     """
-    if mode == "stream":
-        per_stream = max(1, n_elems // n_streams)
+    per_stream = max(1, n_elems // n_streams)
 
-        def op(xs):
-            one = jnp.asarray(1.0, dtype)
-            return tuple(x + one for x in xs)
+    def op(xs):
+        one = jnp.asarray(1.0, dtype)
+        return tuple(x + one for x in xs)
 
-        op.n_elems = per_stream * n_streams
-        op.n_streams = n_streams
-        op.per_stream = per_stream
-        op.bytes_per_call = 2 * op.n_elems * jnp.dtype(dtype).itemsize
-        return op
-
-    interpret = jax.default_backend() != "tpu"
-    n_chunks = max(1, n_elems // chunk)
-    n_elems = n_chunks * chunk  # truncate to whole chunks
-
-    def op(x):
-        return pl.pallas_call(
-            _copy_kernel,
-            grid=(n_chunks,),
-            in_specs=[pl.BlockSpec((chunk,), lambda i: (i,), memory_space=pltpu.VMEM)],
-            out_specs=pl.BlockSpec((chunk,), lambda i: (i,), memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((n_elems,), dtype),
-            interpret=interpret,
-        )(x)
-
-    op.n_elems = n_elems
-    op.bytes_per_call = 2 * n_elems * jnp.dtype(dtype).itemsize
+    op.n_elems = per_stream * n_streams
+    op.n_streams = n_streams
+    op.per_stream = per_stream
+    op.bytes_per_call = 2 * op.n_elems * jnp.dtype(dtype).itemsize
     return op

@@ -9,9 +9,28 @@ jax_devices.py:10,31).
 from __future__ import annotations
 
 import platform
-from typing import List
+import shutil
+import subprocess
+from typing import List, Optional
 
 import jax
+
+
+def gpu_name_and_power_limit() -> Optional[str]:
+    """``name, power.limit`` of the first GPU as nvidia-smi prints them
+    (e.g. ``NVIDIA H100 80GB HBM3, 700.00 W``), or None without nvidia-smi.
+    A card set below its maximum power runs slower under load, so every
+    saved number is recorded beside this line."""
+    if shutil.which("nvidia-smi") is None:
+        return None
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30,
+        ).stdout.strip()
+    except Exception:
+        return None
+    return out.splitlines()[0] if out else None
 
 
 def safe_device_count() -> int:
@@ -59,6 +78,9 @@ def system_info() -> dict:
         info["backend"] = jax.default_backend()
         info["device_count"] = len(devices)
         info["device_kind"] = str(getattr(devices[0], "device_kind", "unknown"))
+        gpu = gpu_name_and_power_limit() if info["backend"] == "gpu" else None
+        if gpu:
+            info["gpu_name_power_limit"] = gpu
         mem = getattr(devices[0], "memory_stats", lambda: None)()
         if mem and "bytes_limit" in mem:
             info["device_memory_gb"] = round(mem["bytes_limit"] / 1024**3, 2)

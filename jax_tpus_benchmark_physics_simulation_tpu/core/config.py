@@ -30,21 +30,17 @@ class MDConfig:
     dim: int = 2
     sigma: float = 1.0
     epsilon: float = 1.0
-    # TPU-native extensions (absent in reference):
+    # Extensions (absent in reference):
     cutoff: Optional[float] = None  # None = full O(N^2) like the reference
-    force_impl: str = "auto"  # dense_xla | dense_pallas | neighbor | auto
+    force_impl: str = "auto"  # auto | dense_xla | neighbor | cell | grid
     dtype: str = "float32"
     rdf_dr: float = 0.05  # molecular_dynamics...:157
     init: str = "uniform"  # uniform (reference, molecular_dynamics...:134) | lattice
     remove_com_drift: bool = False  # reference never removes COM drift
-    # Verlet skin. None = auto: 0.4 for the 2D/list paths (measured gate
-    # optimum, results/gate_tuning_probe.py); the 3D grid engine instead
-    # picks the DENSEST cell geometry with skin >= ~0.1 (cps19 vs the old
-    # cps17 at N=100k: 118.7 vs 105.6M psps once the compacted-mover
-    # rebuild made thin skins cheap — results/RESULTS.md "Round 4").
-    # An explicit float pins the geometry everywhere.
+    # Verlet skin. None = auto (lj_fluid.resolve_skin): 0.4 for the 2D/list
+    # paths; the 3D grid engine picks the DENSEST cell geometry with skin
+    # >= ~0.1. An explicit float pins the geometry everywhere.
     skin: Optional[float] = None
-    pallas_block: int = 256  # tile size for the dense Pallas kernel
     # Kahan-compensated integration (grid path): kills the f32 secular energy
     # drift (measured 7.3e-3 -> ~1e-6 over 1M steps at N=100k) for ~25% step
     # cost. Default on: correctness first.
@@ -77,7 +73,7 @@ class NBodyConfig:
     compute_chaos: bool = True
     g: float = 1.0
     c: float = 1.0
-    # TPU-native extensions:
+    # Extensions beyond the reference:
     lyapunov_method: str = "tangent"  # tangent (variational) | two_trajectory (reference)
     integrator: str = "rk4"  # rk4 (reference) | dopri5 (adaptive)
     rtol: float = 1e-6  # dopri5 tolerances
@@ -95,7 +91,7 @@ class EM3Config:
     bk: float = 0.0
     ex: float = 0.0
     ey: float = 0.0
-    # TPU-native extension: Boris push handles velocity-dependent magnetic
+    # Extension: Boris push handles velocity-dependent magnetic
     # force correctly; "reference" reproduces the reference's pseudo-Verlet
     # (three_particles...:69-76, documented there as improper for B-fields).
     integrator: str = "boris"
@@ -116,11 +112,11 @@ class VMCDMCConfig:
     seed: int = 42
     alpha_init: float = 1.0
     alpha_min: float = 0.01  # clamp at vmc_dmc...:94
-    # TPU-native extensions:
-    resampler: str = "systematic"  # systematic (TPU-friendly) | multinomial (reference)
+    # Extensions beyond the reference:
+    resampler: str = "systematic"  # systematic | multinomial (reference)
     epoch_chunk: int = 50  # epochs fused per device program (scan length)
     snapshot_every: int = 0  # 0 = no walker snapshots; >0 for GIF frames
-    prng_impl: str = "auto"  # auto (rbg on TPU, 12x faster) | threefry | rbg
+    prng_impl: str = "auto"  # auto (threefry2x32) | threefry | rbg
     # potential: harmonic (reference) | anharmonic (V += lam*sum x^4, generic
     # autodiff local energy + pytree {alpha, beta} trial — beyond reference)
     potential: str = "harmonic"
@@ -139,8 +135,8 @@ class BenchConfig:
 
     Conv defaults: the reference defines but never runs its conv
     (tpus_benchmark...:141-155, cin=3); at its 8x64x64x3 shape the op is
-    dispatch-latency-bound and cin=3 leaves the MXU's 128-wide contraction
-    ~2% utilized. Since there is no reference number to match, the default
+    dispatch-latency-bound and cin=3 leaves the matrix units nearly idle.
+    Since there is no reference number to match, the default
     problem is sized compute-bound (64x128x128x32 -> 64, ~39 GFLOP/call);
     the analytic formula (flops.conv_flops) is exact for SAME/stride-1.
     """
@@ -157,12 +153,10 @@ class BenchConfig:
     precision: str = "float32"  # float32 | bfloat16
     max_cores: int = 0  # 0 = auto up to available
     # None = all ops; else case-insensitive op names to run (e.g.
-    # ("2D", "Bandwidth")). Lets a sweep isolate worker-crashing ops in
-    # their own process (3D_FFT at depth 6 x 4096^2 reproducibly kills the
-    # remote v5e worker and poisons every op after it in-process).
+    # ("2D", "Bandwidth")).
     ops: Optional[Tuple[str, ...]] = None
     csv: Optional[str] = None
-    plot: Optional[str] = "tpu_benchmark_results.png"
+    plot: Optional[str] = "benchmark_results.png"
 
 
 def override(cfg, **kwargs):

@@ -5,7 +5,7 @@ one fully device-fused driver in the reference — the pattern generalized
 here). Per step: local energies -> weights exp(-(E_L - E_ref) dt) ->
 sanitize -> resample (branching, population fixed) -> drift + diffusion move.
 
-TPU-native changes: resampler is pluggable (systematic by default — the
+Changes from the reference: resampler is pluggable (systematic by default — the
 reference's ``random.choice`` multinomial is kept as an option), walker
 snapshots are emitted at a configurable stride instead of the full
 (n_steps, n_walkers, dim) history, and the walker population can be SHARDED

@@ -16,7 +16,7 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from jax_tpus_benchmark_physics_simulation_tpu.utils import struct
 
 
 @struct.dataclass

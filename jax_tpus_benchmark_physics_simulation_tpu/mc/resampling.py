@@ -3,7 +3,7 @@
 Reference: ``random.choice(p=weights)`` multinomial resampling at
 vmc_dmc...:255-260 — an O(N) gather behind an O(N log N) sort inside
 ``choice``. Both resamplers here are inverse-CDF based (cumsum +
-``searchsorted`` + gather), which XLA lowers to TPU-friendly scans/gathers:
+``searchsorted`` + gather), which XLA lowers to scans and one gather:
 
 - ``multinomial``: N iid uniforms (distribution-identical to the reference).
 - ``systematic``: one uniform offset, stratified comb — lower variance and

@@ -4,7 +4,7 @@ Reference: nbody_bh_merger_sim_single-host_workload.py (289 LoC) — RK4 over a
 lax.scan, then *host NumPy* post-processing for the GW strain (:147-171) and a
 second full trajectory for the Lyapunov exponent (:175-208).
 
-TPU-native redesign:
+Redesign:
 - pairwise gravity is vectorized (the reference unrolls a double Python loop,
   :54-67 — O(n^2) trace size);
 - GW strain is computed on device (ops.observables.gw);

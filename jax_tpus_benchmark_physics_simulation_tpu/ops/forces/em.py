@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from jax_tpus_benchmark_physics_simulation_tpu.utils import struct
 
 
 @struct.dataclass

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from jax_tpus_benchmark_physics_simulation_tpu.utils import struct
 
 
 @struct.dataclass
@@ -23,7 +23,7 @@ class Gravity:
     # Regularization mode:
     #   "min_distance": acc term zeroed when r < min_distance (nbody...:64)
     #   "r2_floor": r^2 += eye, then floored at r2_floor (three_particles...:28-30)
-    #   "plummer": softening r^2 -> r^2 + eps^2 (standard, TPU-friendly: no branches)
+    #   "plummer": softening r^2 -> r^2 + eps^2 (standard, branch-free)
     mode: str = struct.field(pytree_node=False, default="plummer")
     min_distance: float = struct.field(pytree_node=False, default=1e-6)
     r2_floor: float = struct.field(pytree_node=False, default=1e-12)

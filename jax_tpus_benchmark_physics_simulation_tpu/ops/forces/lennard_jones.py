@@ -2,9 +2,9 @@
 
 Reference physics: ``total_energy_fn`` at molecular_dynamics...:50-62
 (full O(N^2) pair matrix, no cutoff, forces via ``grad`` at :64).
-Here: analytic dense energy/force (oracle + XLA-fused path), a cutoff option
-(with energy shift) the reference lacks, and dispatch to the Pallas blockwise
-kernel / neighbor-list path for scale.
+Here: analytic dense energy/force (oracle + XLA-fused path) and a cutoff
+option (with energy shift) the reference lacks. ``force_on`` checks large
+systems against the same oracle without building an (N, N) array.
 """
 
 from __future__ import annotations
@@ -13,9 +13,12 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from jax_tpus_benchmark_physics_simulation_tpu.ops.forces.pbc import pair_displacements
+from jax_tpus_benchmark_physics_simulation_tpu.ops.forces.pbc import (
+    minimum_image,
+    pair_displacements,
+)
+from jax_tpus_benchmark_physics_simulation_tpu.utils import struct
 
 
 @struct.dataclass
@@ -76,3 +79,33 @@ class LennardJones:
         pair = 4.0 * self.epsilon * (s12 - s6) - self._shift()
         e = 0.5 * jnp.sum(jnp.where(mask, pair, 0.0))
         return f, e
+
+    def force_on(self, position: jax.Array, idx: jax.Array, block: int = 8192) -> jax.Array:
+        """Forces on the particles ``idx`` from all N, the same physics as
+        :meth:`force`, summed over partner blocks of ``block`` particles so
+        that no (N, N) array exists: memory is O(len(idx) * block)."""
+        n, dim = position.shape
+        n_blocks = -(-n // block)
+        padded = jnp.zeros((n_blocks * block, dim), position.dtype).at[:n].set(position)
+        targets = position[idx]
+
+        def body(k, acc):
+            start = k * block
+            part = jax.lax.dynamic_slice_in_dim(padded, start, block)
+            j = start + jnp.arange(block)
+            dr = targets[:, None, :] - part[None, :, :]
+            if self.box is not None:
+                dr = minimum_image(dr, self.box)
+            r2 = jnp.sum(dr * dr, axis=-1)
+            mask = (j[None, :] != idx[:, None]) & (j < n)[None, :]
+            if self.cutoff is not None:
+                mask = mask & (r2 < self.cutoff**2)
+            r2_safe = jnp.where(mask, r2, 1.0)
+            s2 = (self.sigma**2) / r2_safe
+            s6 = s2 * s2 * s2
+            fmag = jnp.where(mask, 24.0 * self.epsilon * (2.0 * s6 * s6 - s6) / r2_safe, 0.0)
+            return acc + jnp.sum(fmag[..., None] * dr, axis=1)
+
+        return jax.lax.fori_loop(
+            0, n_blocks, body, jnp.zeros(targets.shape, position.dtype)
+        )

@@ -1,11 +1,1 @@
-from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.pairwise_pallas import (
-    make_lj_force_pallas,
-    make_lj_energy_pallas,
-    make_gravity_accel_pallas,
-)
-
-__all__ = [
-    "make_lj_force_pallas",
-    "make_lj_energy_pallas",
-    "make_gravity_accel_pallas",
-]
+"""Spatial structures and force kernels of the particle engines."""

@@ -1,13 +1,11 @@
 """Cell-dense LJ forces: regular cell-grid compute with ``jnp.roll`` —
 zero gathers in the hot loop.
 
-Why: the (N, K) neighbor-list force path spends its time in per-element
-gathers, which TPUs hate (measured 14 ms/step at N=100k on v5e — gather
-bound, not FLOP bound). Here particles are binned into a dense
+Here particles are binned into a dense
 ``(ncx, ncy, capacity)`` grid; each of the 3^dim neighbor cells is brought
 adjacent by ``jnp.roll`` (a regular copy XLA pipelines at HBM speed, which
 also implements periodic wrap-around for free), and every cell-vs-cell
-(C x C) pair block is dense VPU work. Per step:
+(C x C) pair block is dense elementwise work. Per step:
 
 1. scatter positions into the cell grid at precomputed slots (one (N,)
    row-scatter — slots are static between rebuilds, Verlet-skin semantics);
@@ -26,7 +24,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from jax_tpus_benchmark_physics_simulation_tpu.utils import struct
 
 from jax_tpus_benchmark_physics_simulation_tpu.ops.forces.pbc import minimum_image
 
@@ -121,23 +119,12 @@ def make_cell_grid_fn(
         if safety is not None:
             capacity = max(4, int(math.ceil(mean * safety + 2)))
         else:
-            # mean + 3*sqrt(mean) + 1, rounded UP to a multiple of 8. The
-            # 8-rounding is mandatory on TPU (measured: non-8-aligned
-            # sublane capacities trigger Mosaic relayouts costing 2-4x the
-            # saved pair math, results/RESULTS.md). Margin vs measurement:
-            # 2D N=100k gives cap 16 vs observed max occupancy 12 over 60k
-            # steps; 3D N=100k gives cap 40 vs observed max 29 (was 48 with
-            # the old 2*mean+2 rule — the tightening is +51% 3D throughput).
+            # mean + 3*sqrt(mean) + 1 (Poisson tail), rounded up to a
+            # multiple of 8 below: the GPU force kernel tiles the slot axis
+            # in 8-slot chunks (cell_triton.SLOT_TILE), so no tile straddles
+            # two cells.
             capacity = max(4, int(math.ceil(mean + 3.0 * math.sqrt(mean) + 1)))
-        if dim == 3 and capacity > 16:
-            # round the AUTO capacity up to a multiple of 16: it admits the
-            # measured-fastest 3D kernel chunking (b_chunk=16 — cap 48
-            # (8,16) runs 1.03 ms/call vs cap 40's best 1.17 at 3D N=100k,
-            # results/md3_chunk_sweep.py) and the extra slots are sentinel
-            # rows the dynamic occupancy bound never visits. Explicit
-            # ``capacity=`` overrides keep plain 8-alignment.
-            capacity = ((capacity + 15) // 16) * 16
-    capacity = ((capacity + 7) // 8) * 8  # sublane-aligned (multiple of 8)
+    capacity = ((capacity + 7) // 8) * 8  # whole 8-slot kernel tiles
     return CellGridFn(
         box=float(box),
         cutoff=float(cutoff),

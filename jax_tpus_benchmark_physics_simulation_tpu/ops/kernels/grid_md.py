@@ -1,20 +1,18 @@
-"""Grid-resident LJ molecular dynamics (2D) — the speed-of-light MD path.
+"""Grid-resident LJ molecular dynamics (2D).
 
-Measured on TPU v5e: a single (100k,) element gather costs ~1 ms (TPU
-gathers are descriptor-serial), so any per-step scatter/gather dominates the
-physics. This engine therefore keeps ALL particle state (positions,
-velocities, forces, particle ids) permanently in the cell-grid layout
-``(ncx, C, ncy_pad)`` used by the Pallas cell kernel (cell_pallas.py):
+The engine keeps ALL particle state (positions, velocities, forces, particle
+ids) permanently in the cell-grid layout ``(ncx, C, ncy)`` of the cell force
+(cell_force.py), so the hot loop does no per-particle scatter or gather:
 
 - the velocity-Verlet update is pure elementwise work on grids, run in
   *leapfrog form* inside windows (one kick per step instead of two
   half-kicks; half-kick in / half-unkick out at window boundaries) so each
-  inner step is exactly one fused elementwise pass + one Pallas force call;
-- forces come from the Pallas cell kernel reading the grids directly — no
-  rolled neighbor copies (BlockSpec index maps), no occupancy masks (empty
-  slots hold the x sentinel ``SENTINEL_FACTOR*box``), no per-pair
-  minimum-image rounds (periodic seams handled per block), no energy math
-  in the hot loop (energy is computed on demand at sampling points);
+  inner step is exactly one fused elementwise pass + one force call;
+- forces come from the cell force reading the grids directly: no occupancy
+  masks (empty slots hold the x sentinel ``SENTINEL_FACTOR*box``), no
+  per-pair minimum-image rounds (periodic seams handled per block), no
+  energy math in the hot loop (energy is computed on demand at sampling
+  points);
 - positions are NOT wrapped per step: between rebuilds a particle drifts at
   most skin/2 outside [0, box), which the seam-free pair math handles
   exactly; coordinates are wrapped once per rebuild;
@@ -36,23 +34,39 @@ lacks; parity vs the dense oracle is asserted in tests/test_grid_md.py.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_dense import CellGridFn
-from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_pallas import (
-    _round_up,
-    make_grid_force_kernel,
+from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_force import (
+    make_grid_force,
 )
+from jax_tpus_benchmark_physics_simulation_tpu.utils import struct
 
 # Empty grid slots store x = SENTINEL_FACTOR * box (y = 0). Together with the
-# kernel's ``0 < r2 < cutoff^2`` validity test this excludes every pair that
-# touches an empty slot without occupancy masks — see cell_pallas.py.
+# force's ``0 < r2 < cutoff^2`` validity test this excludes every pair that
+# touches an empty slot without occupancy masks — see cell_force.py.
 SENTINEL_FACTOR = 2.5
+
+
+def named_scope(name: str):
+    """Decorator: trace ``fn`` under ``jax.named_scope(name)``, so its ops
+    carry the name in HLO metadata and profiler traces (the rebuild's share
+    of a window is read from a trace by this name)."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            with jax.named_scope(name):
+                return fn(*args, **kwargs)
+
+        return wrapped
+
+    return deco
 
 
 def permute_rows_by_inverse(dest_flat, fields, fills, size: int, dtype):
@@ -60,14 +74,10 @@ def permute_rows_by_inverse(dest_flat, fields, fills, size: int, dtype):
     ``fills``) as ONE single-column int scatter + ONE multi-column row
     gather, instead of a multi-column row scatter.
 
-    Why (measured on v5e, results/scatter_probe.py): the (size, F) row
-    scatter hits a ~13-16 MB target-size cliff — 84M rows/s below it, 10M
-    rows/s above (246 ms at the 2.48M-slot N=1M grid, THE N=1M bottleneck
-    of round 2). Inverting first keeps the scatter target at 4 bytes/row
-    (1.4 ms for 2.48M rows) and the row gather runs at 267M rows/s
-    (9.3 ms) — 23x faster at N=1M, ~5x at N=100k, identical semantics:
-    ``inv[t] = i  iff  dest[i] = t`` (dest is injective on live rows), and
-    unwritten targets keep ``size`` which gathers the fills row.
+    The scatter target stays 4 bytes per row and the F columns move in one
+    row gather. Semantics: ``inv[t] = i  iff  dest[i] = t`` (dest is
+    injective on live rows), and unwritten targets keep ``size``, which
+    gathers the fills row.
     """
     size_i = jnp.int32(size)
     inv = (
@@ -80,9 +90,8 @@ def permute_rows_by_inverse(dest_flat, fields, fills, size: int, dtype):
         [vals, jnp.asarray(fills, dtype)[None, :]], axis=0
     )
     out = jnp.take(vals_ext, inv, axis=0)  # (size, F)
-    # barrier: without it XLA fuses this ONE row gather into the F
-    # per-column consumers, replicating it as F element gathers (measured
-    # 78 ms instead of ~11 at N=1M)
+    # barrier: without it XLA may fuse this ONE row gather into the F
+    # per-column consumers, replicating it as F element gathers
     return jax.lax.optimization_barrier(out)
 
 
@@ -130,9 +139,7 @@ class GridMD:
         sigma: float = 1.0,
         epsilon: float = 1.0,
         dt: float = 1e-3,
-        interpret: Optional[bool] = None,
         compensated: bool = False,
-        rows_per_block: Optional[int] = None,
     ):
         assert grid_fn.dim == 2, "grid-resident MD is 2D (grid_md3 covers 3D)"
         self.compensated = compensated
@@ -144,47 +151,16 @@ class GridMD:
         self.n = grid_fn.n
         self.dt = dt
         self.sentinel = SENTINEL_FACTOR * float(grid_fn.box)
-        # Lane packing: R consecutive cell rows share one lane vector —
-        # layout (cps/R, C, round_up(R*cps, 128)). R=1 is the base layout;
-        # auto-packing kicks in when cps is far from a 128 multiple (e.g.
-        # N=16k: cps=49 -> R=7, lane utilization 38% -> 90%). See
-        # cell_pallas_packed.py.
-        if rows_per_block is None:
-            from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_pallas_packed import (
-                choose_rows_per_block,
-            )
-
-            rows_per_block = choose_rows_per_block(self.cps)
-        assert self.cps % rows_per_block == 0, (
-            f"rows_per_block {rows_per_block} must divide cells_per_side {self.cps}"
-        )
-        self.rows_per_block = rows_per_block
-        self.n_blocks = self.cps // rows_per_block
-        self.lanes = _round_up(rows_per_block * self.cps, 128)
-        self.grid_shape = (self.n_blocks, self.cap, self.lanes)
-        self.size = self.n_blocks * self.cap * self.lanes
-        self._interpret = interpret
-        self._migrate_cache = {}
-        # hot-path kernel: forces only; energy kernel: built the same way,
+        self.grid_shape = (self.cps, self.cap, self.cps)
+        self.size = self.cps * self.cap * self.cps
+        # the platform picks the implementation (cell_force.choose_impl)
+        self._force_kw = dict(sigma=sigma, epsilon=epsilon)
+        # hot-path force: forces only; energy force: built the same way,
         # called only at sampling points (potential_energy).
-        if rows_per_block > 1:
-            from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_pallas_packed import (
-                make_grid_force_kernel_packed,
-            )
-
-            def mk(**kw):
-                return make_grid_force_kernel_packed(
-                    grid_fn, rows_per_block, sigma=sigma, epsilon=epsilon,
-                    interpret=interpret, **kw,
-                )
-        else:
-            def mk(**kw):
-                return make_grid_force_kernel(
-                    grid_fn, sigma=sigma, epsilon=epsilon, interpret=interpret, **kw
-                )
-
-        self.force_kernel = mk()
-        self.energy_kernel = mk(with_energy=True)
+        self.force_kernel = make_grid_force(grid_fn, **self._force_kw)
+        self.energy_kernel = make_grid_force(
+            grid_fn, with_energy=True, **self._force_kw
+        )
 
     # -- layout helpers ------------------------------------------------------
     def _slot2(self, position: jax.Array) -> Tuple[jax.Array, jax.Array]:
@@ -202,14 +178,10 @@ class GridMD:
         rank = jnp.minimum(rank, cap - 1)
         slot_sorted = sorted_ids * cap + rank  # (cell, a) flat
         slot = jnp.zeros_like(ids).at[order].set(slot_sorted)
-        # map (cell_id, a) -> (block, a, r*ncy + cy) packed-grid flat index
+        # map (cell_id, a) -> (cx, a, cy) grid flat index
         cell_id = slot // cap
         aa = slot % cap
-        cx = cell_id // cps
-        cy = cell_id % cps
-        rpb = self.rows_per_block
-        lane = (cx % rpb) * cps + cy
-        return ((cx // rpb) * cap + aa) * self.lanes + lane, overflow
+        return ((cell_id // cps) * cap + aa) * cps + cell_id % cps, overflow
 
     def prepare(self, state: GridMDState) -> GridMDState:
         """Placement hook (ShardedGridMD shards here; base is identity)."""
@@ -252,29 +224,21 @@ class GridMD:
     # -- migration rebuild (sort-free) ----------------------------------------
     def _migration_dest(self, s: GridMDState):
         """Allocation phase of the migration rebuild. Returns wrapped
-        coordinates, the SOURCE-frame code grid ``dcode * cap + target_a``
-        consumed by the scatter-free migrate kernel (migrate_pallas), the
-        post-rebuild occupancy grid, the per-slot flat destination index
-        (``self.size`` = dropped; used only by the GSPMD rows variant),
-        and the overflow flag. Split out so results/rebuild_phase_probe.py
-        can time allocation and permutation separately."""
-        cps, cap, lanes, box = self.cps, self.cap, self.lanes, self.box
-        rpb = self.rows_per_block
+        coordinates, the per-slot flat destination index (``self.size`` =
+        dropped) and the overflow flag."""
+        cps, cap, box = self.cps, self.cap, self.box
         gs = self.grid_shape
         occ_b = s.occ > 0.5
 
         # wrap coordinates periodically (unwrapped drift < skin/2 since the
         # last rebuild); sentinel slots produce garbage here but are gated by
-        # occ_b everywhere below and re-filled by scat.
+        # occ_b everywhere below and re-filled by the permutation.
         xw = jnp.mod(s.xg, box)
         yw = jnp.mod(s.yg, box)
 
-        # current cell coords of each slot (by construction of the packed
-        # layout: physical row = block*R + lane//ncy, column = lane % ncy;
-        # padding lanes give garbage rows, gated by occ_b everywhere below)
-        lane_i = jax.lax.broadcasted_iota(jnp.int32, gs, 2)
-        cx = jax.lax.broadcasted_iota(jnp.int32, gs, 0) * rpb + lane_i // cps
-        cy = lane_i % cps
+        # current cell coords of each slot
+        cx = jax.lax.broadcasted_iota(jnp.int32, gs, 0)
+        cy = jax.lax.broadcasted_iota(jnp.int32, gs, 2)
         # target cell coords from positions
         cell = box / cps
         txc = jnp.clip((xw // cell).astype(jnp.int32), 0, cps - 1)
@@ -295,32 +259,9 @@ class GridMD:
         tyc = (cy + dyc) % cps
 
         def roll_cells(v, dx, dy):
-            """Periodic shift by (dx, dy) CELLS on the packed layout:
-            out[X, :, Y] = v[(X - dx) % cps, :, (Y - dy) % cps] in physical
-            (row, column) coordinates. Column shifts roll within sub-rows
-            (wrap column patched); row shifts roll the lane axis by one
-            sub-row, with the block-crossing sub-row patched from a
-            block-axis roll. Every lane that would read padding is exactly a
-            patched one; padding lanes themselves carry garbage, which every
-            consumer gates on occ_b / m."""
-            col = jax.lax.broadcasted_iota(jnp.int32, v.shape, 2)
-            if dy:
-                rolled = jnp.roll(v, dy, axis=2)
-                if dy == 1:
-                    patch = jnp.roll(v, -(cps - 1), axis=2)
-                    rolled = jnp.where(col % cps == 0, patch, rolled)
-                else:
-                    patch = jnp.roll(v, cps - 1, axis=2)
-                    rolled = jnp.where(col % cps == cps - 1, patch, rolled)
-                v = rolled
-            if dx:
-                main = jnp.roll(v, dx * cps, axis=2)
-                cross = jnp.roll(
-                    jnp.roll(v, dx, axis=0), -dx * (rpb - 1) * cps, axis=2
-                )
-                sub = col // cps
-                v = jnp.where(sub == (0 if dx == 1 else rpb - 1), cross, main)
-            return v
+            """Periodic shift by (dx, dy) CELLS:
+            out[X, :, Y] = v[(X - dx) % cps, :, (Y - dy) % cps]."""
+            return jnp.roll(v, (dx, dy), axis=(0, 2))
 
         dirs = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
         # Allocation: per target cell, classes land in fixed order (stayers
@@ -328,11 +269,10 @@ class GridMD:
         # of all earlier classes. A target receives movers of direction d
         # from exactly one source cell (t - d), so a mover's in-class rank at
         # the target equals its rank within its source cell's class.
-        # Batched over all 9 classes at once (one one-hot stack + one
-        # cumsum instead of 9 launch-bound big-array passes; the class-order
-        # base accumulation becomes an exclusive cumsum over the tiny
-        # per-class count arrays — bit-identical permutation, see the 3D
-        # twin in grid_md3._migration_dest3 for the measured effect).
+        # Batched over all 9 classes at once: one one-hot stack + one cumsum
+        # gives every class's in-cell ranks, and the class-order base
+        # accumulation is an exclusive cumsum over the tiny per-class count
+        # arrays.
         dcode = (dxc + 1) * 3 + (dyc + 1)  # class in 0..8
         dm = (
             jax.lax.broadcasted_iota(jnp.int32, (9,) + gs, 0) == dcode[None]
@@ -356,106 +296,27 @@ class GridMD:
         overflow = overflow | slot_overflow
         valid = occ_b & (target_a >= 0) & (target_a < cap)
 
-        # SOURCE-frame code for the scatter-free migrate kernel: the slot's
-        # direction class and its ALLOCATED target slot, -1 where invalid.
-        # Classes occupy disjoint code ranges [j*cap, (j+1)*cap), so the
-        # kernel's per-direction probe can never cross-match (the overflow
-        # guard above keeps target_a < cap out of band).
-        scode = jnp.where(valid, dcode * cap + target_a, -1)
-
-        # post-rebuild occupancy: slots fill compactly from 0, so
-        # occ'[t, a'] = a' < new_count(t); padding lanes carry rolled
-        # garbage counts and are masked off.
-        tot = jnp.minimum(jnp.sum(rc, axis=0), cap)  # (n_blocks, 1, lanes)
-        slot_i = jax.lax.broadcasted_iota(jnp.int32, gs, 1)
-        occ_new = ((slot_i < tot) & (lane_i < rpb * cps)).astype(s.occ.dtype)
-
-        # flat destination index (in target frame); OOB -> dropped. Only
-        # the GSPMD rows-permutation rebuild consumes this (the Pallas
-        # rebuild is scatter-free); it is pure elementwise arithmetic.
-        dest = (
-            ((txc // rpb) * cap + target_a) * lanes + (txc % rpb) * cps + tyc
-        ).astype(jnp.int32)
+        # flat destination index (in target frame); OOB -> dropped
+        dest = ((txc * cap + target_a) * cps + tyc).astype(jnp.int32)
         dest = jnp.where(valid, dest, self.size)
-        return xw, yw, scode, occ_new, dest.reshape(-1), overflow
+        return xw, yw, dest.reshape(-1), overflow
 
-    def _migrate_call(self, n_fields: int, fills):
-        """Cached migrate_pallas kernel for this grid (see its module
-        docstring: gathers/scatters are descriptor-bound at ~84M rows/s on
-        v5e regardless of row width; the dense compare/select kernel does
-        the same permutation VPU-bound, 64 -> ~2 ms at N=1M)."""
-        key = (n_fields, tuple(fills))
-        cached = self._migrate_cache.get(key)
-        if cached is None:
-            from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.migrate_pallas import (
-                make_migrate_kernel,
-            )
-
-            cached = make_migrate_kernel(
-                self.cps, self.cap, self.rows_per_block, n_fields, fills
-            )
-            self._migrate_cache[key] = cached
-        return cached
-
+    @named_scope("rebuild")
     def _rebuild_migrate(self, s: GridMDState) -> GridMDState:
         """Sort-free re-binning exploiting temporal coherence: between
         rebuilds every particle moves < skin/2 < cell size, so its new cell
         is one of the 9 neighbors of its assigned cell. Slot allocation per
         target cell is computed with rolls + small-axis cumsums (no global
-        argsort — measured 79 ms for the sort-based rebuild at N=100k on
-        v5e vs ~5 ms for this); the slot permutation itself is the dense
-        migrate_pallas kernel consuming the source-frame code grid — ZERO
-        descriptor ops in the whole rebuild (the code grid's former
-        single-column scatter measured ~3 ms at N=1M, see migrate_pallas
-        docstring). A particle that somehow moved further than one cell
-        raises ``overflow`` (and is kept in place — loud, not silent).
-        Coordinates are wrapped back into [0, box) here (the only place
-        they ever are) and empty slots re-filled with the sentinel."""
+        argsort, see :meth:`_migration_dest`); the slot permutation is an
+        inverse-index scatter + one (size, F) row gather
+        (permute_rows_by_inverse). Pure jnp, so GSPMD partitions it on the
+        sharded state of ShardedGridMD as well. A particle that somehow
+        moved further than one cell raises ``overflow`` (and is kept in
+        place — loud, not silent). Coordinates are wrapped back into
+        [0, box) here (the only place they ever are) and empty slots
+        re-filled with the sentinel."""
         gs = self.grid_shape
-        xw, yw, scode, occ, _dest, overflow = self._migration_dest(s)
-
-        # pid rides as f32 — exact for n < 2^24.
-        assert self.n < (1 << 24), "pid-in-f32 packing requires n < 2^24"
-        dtype = s.xg.dtype
-        fields = [xw, yw, s.vxg, s.vyg, s.fxg, s.fyg, s.pid.astype(dtype)]
-        fills = [self.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
-        if s.crx is not None:
-            fields += [s.crx, s.cry, s.cvx, s.cvy]
-            fills += [0.0, 0.0, 0.0, 0.0]
-        out = self._migrate_call(len(fields), fills)(scode, *fields)
-
-        zg = jnp.zeros(gs, dtype)
-        comp = (
-            dict(crx=out[7], cry=out[8], cvx=out[9], cvy=out[10])
-            if s.crx is not None
-            else {}
-        )
-        return s.replace(
-            xg=out[0],
-            yg=out[1],
-            vxg=out[2],
-            vyg=out[3],
-            fxg=out[4],
-            fyg=out[5],
-            occ=occ,
-            pid=out[6].astype(jnp.int32),
-            dispx=zg,
-            dispy=zg,
-            dmax2=jnp.zeros((), dtype),
-            overflow=overflow,
-            **comp,
-        )
-
-    def _rebuild_migrate_rows(self, s: GridMDState) -> GridMDState:
-        """Row-permutation variant of :meth:`_rebuild_migrate`: the same
-        allocation, applied with an inverse-index scatter + (size, F) row
-        gather (permute_rows_by_inverse) instead of the Pallas kernel.
-        Slower on one chip (descriptor-bound, see migrate_pallas docstring)
-        but pure jnp — GSPMD can shard it, so ShardedGridMD rebuilds with
-        this on the sharded global state (a pallas_call cannot be
-        auto-partitioned)."""
-        gs = self.grid_shape
-        xw, yw, _scode, _occ, dest_flat, overflow = self._migration_dest(s)
+        xw, yw, dest_flat, overflow = self._migration_dest(s)
 
         assert self.n < (1 << 24), "pid-in-f32 packing requires n < 2^24"
         dtype = s.xg.dtype
@@ -494,7 +355,7 @@ class GridMD:
 
     # -- rebuild (grid -> grid permutation, sort-based oracle) ---------------
     def _rebuild(self, s: GridMDState) -> GridMDState:
-        cps, cap, lanes = self.cps, self.cap, self.lanes
+        cps, cap = self.cps, self.cap
         occ = s.occ.reshape(-1)
         x = jnp.mod(s.xg, self.box).reshape(-1)
         y = jnp.mod(s.yg, self.box).reshape(-1)
@@ -513,8 +374,7 @@ class GridMD:
         rank = jnp.minimum(rank, cap - 1)
         cx = sorted_ids // cps
         cy = sorted_ids % cps
-        rpb = self.rows_per_block
-        new_slot = ((cx // rpb) * cap + rank) * lanes + (cx % rpb) * cps + cy
+        new_slot = (cx * cap + rank) * cps + cy
         new_slot = jnp.where(real, new_slot, self.size)  # drop empties
 
         def scat(v, fill=0.0, dtype=None):
@@ -689,8 +549,8 @@ class GridMD:
 
     def step(self, s: GridMDState) -> GridMDState:
         """Single step with a per-step displacement-gated rebuild. Correct for
-        any dt, but the on-device branch costs ~2x the step itself on TPU —
-        prefer :meth:`make_chunk_step` for long runs."""
+        any dt, but pays the gate and branch every step — prefer
+        :meth:`make_chunk_step` for long runs."""
         s = jax.lax.cond(self._needs_rebuild(s), self._rebuild_migrate, lambda t: t, s)
         return self.step_nocheck(s)
 
@@ -709,8 +569,7 @@ class GridMD:
         remaining ``(1/2 - gate_frac)`` margin before a true (flagged)
         violation at skin/2 — size ``n_inner`` with
         :meth:`auto_inner_steps` using the SAME ``gate_frac``. Higher gates
-        buy fewer (expensive, ~4.5 ms) rebuilds at the price of shorter
-        windows; 0.4 measured optimal at N=100k (results/RESULTS.md).
+        buy fewer rebuilds at the price of shorter windows.
         ``thermostat=(gamma, kT)`` makes the windows BAOAB Langevin (NVT) —
         see :meth:`_make_window`."""
         window = self._window_builder(n_inner, thermostat=thermostat)
@@ -733,10 +592,8 @@ class GridMD:
         ``n_steps`` (``n_inner`` must divide it) as a nested while-loop —
         inner loop runs k-step windows until the rebuild gate trips (checked
         between windows, the same cadence as :meth:`make_chunk_step`'s
-        cond), outer loop rebuilds UNCONDITIONALLY and re-enters. The
-        round-4 cond probe (results/cond_rebuild_probe.py) measured the
-        chunk driver's data-dependent ``lax.cond`` costing ~0.015 ms/step
-        at 2D N=100k in state copies the accounting could not place —
+        cond), outer loop rebuilds UNCONDITIONALLY and re-enters. A
+        data-dependent ``lax.cond`` can copy the state through its branch;
         while-loop carries alias in place, so this form has no branch to
         copy through. Trajectory-equivalent to the chunk driver (same
         windows, same gate cadence, same rebuilds — the only extra is one
@@ -771,8 +628,7 @@ class GridMD:
 
     def make_production_run_fixed(self, n_steps: int, cadence: int, thermostat=None):
         """Fixed-cadence production driver, 2D port of
-        grid_md3.GridMD3.make_production_run_fixed (see there for the
-        measured rationale): a single fori_loop of ``rebuild ->
+        grid_md3.GridMD3.make_production_run_fixed: a single fori_loop of ``rebuild ->
         cadence-step window`` blocks — zero gate evaluation and zero
         dynamic-while machinery. NVE-only; safety demotes to the window's
         skin/2 violation flag (loud, never silent). Use :meth:`auto_cadence`
@@ -802,10 +658,8 @@ class GridMD:
     def auto_cadence(self, kt: float = 1.0, n_steps: int = 100_000) -> int:
         """Rebuild cadence for :meth:`make_production_run_fixed` — Gaussian
         extreme-value sizing over the whole run; see
-        grid_md3.GridMD3.auto_cadence for the derivation and the long-run
-        validation. (The fixed driver is non-default in 2D: the gated
-        driver measured faster, 600.8 vs 587.4M psps at N=100k —
-        results/md2_fixed_probe5.py.)"""
+        grid_md3.GridMD3.auto_cadence for the derivation. (The fixed driver
+        is not used by lj_fluid in 2D, which runs the gated driver.)"""
         import math
 
         samples = max(float(self.n) * max(n_steps, 1), math.e)
@@ -815,19 +669,12 @@ class GridMD:
     def auto_chunk_params(self, kt: float = 1.0) -> Tuple[int, float]:
         """``(n_inner, gate_frac)`` sized TOGETHER: the highest rebuild gate
         whose remaining window budget still fits >= 1 step at the 8-sigma
-        tail speed. Gate 0.40 (full window) is the round-3 measured
-        steady-state optimum at large N now that the Pallas migrate kernel
-        made rebuilds ~3.6x cheaper (`results/gate_tuning_probe.py`,
-        equilibrated kT=1 states: N=100k 0.40/k=4 -> 431.7M vs 0.45/k=2 ->
-        418.0M psps; N=1M 0.40/k=4 -> 364.9M vs 0.45/k=2 -> 358.5M — the
-        cheap rebuild shifts the optimum from max-gate toward longer
-        windows; the probe's first committed table read 2x slow from an
-        unsynced warm dispatch inside the timed segment, since fixed —
-        ordering was preserved, so the rule choice stands).
-        At smaller N the rebuild is cheap relative to the window so the
-        optimum moves lower still (N=16k measured: 0.35/k=7 -> 271M vs
-        0.45/k=2 -> 245M). Falls back toward 0.25 for large dt where the
-        margin cannot fit one step. Pass BOTH values to
+        tail speed, capped at a preferred gate (0.40 at N >= 50k, 0.35
+        below). The preferences were fitted to an earlier build's kernel
+        and rebuild costs and have not been re-fitted on a GPU; any gate
+        here is safe, because the skin/2 margin sizes the window. Falls
+        back toward 0.25 for large dt where the margin cannot fit one
+        step. Pass BOTH values to
         :meth:`make_chunk_step` — mixing a high gate with a window sized
         for a lower one would erode the violation margin."""
         prefer = 0.40 if self.n >= 50_000 else 0.35

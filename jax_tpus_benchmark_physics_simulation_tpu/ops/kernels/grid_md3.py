@@ -1,40 +1,40 @@
-"""Grid-resident LJ molecular dynamics (3D) — packed-lane generalization of
-the 2D engine (grid_md.py; read that docstring first — every design choice
-there was measured on TPU v5e and carries over).
+"""Grid-resident LJ molecular dynamics (3D) — generalization of the 2D
+engine (grid_md.py; read that docstring first — every design choice there
+carries over).
 
-State lives permanently in the (ncx, C, P) cell-grid layout of the 3D Pallas
-kernel (cell_pallas3.py), with the (y, z) cell plane packed into lanes
-(lane = cy*ncz + cz). The step is the same leapfrog-window scheme: one fused
-elementwise pass + one Pallas force call per step, displacement accumulators
-for the skin monitor, Kahan compensation optional, migration-based re-binning
-(rolls + small-axis cumsums over the 27 3D directions — no argsort) as the
-only gather/scatter in the run. Coordinates are wrapped only at rebuilds.
+State lives permanently in the (ncx, C, L) cell-grid layout of the cell
+force (cell_force.py), with the (y, z) cell plane flattened into the lane
+axis (lane = cy*ncz + cz, L = ncy*ncz). The step is the same leapfrog-window
+scheme: one fused elementwise pass + one force call per step, displacement
+accumulators for the skin monitor, Kahan compensation optional,
+migration-based re-binning (rolls + small-axis cumsums over the 27 3D
+directions — no argsort) as the only gather/scatter in the run.
+Coordinates are wrapped only at rebuilds.
 
 The reference MD is dim=2-hardcoded (molecular_dynamics_jax_single-host_
-workload.py:26); 3D at the 100k-particle scale is beyond-reference scope
-(round-1 VERDICT item 2). Physics parity vs the dense oracle is asserted in
-tests/test_grid_md3.py.
+workload.py:26); 3D at the 100k-particle scale is beyond-reference scope.
+Physics parity vs the dense oracle is asserted in tests/test_grid_md3.py.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple, Union
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_dense import CellGridFn
-from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_pallas import _round_up
-from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_pallas3 import (
-    make_grid_force_kernel3,
+from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_force import (
+    make_grid_force,
 )
 from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.grid_md import (
     SENTINEL_FACTOR,
+    named_scope,
     permute_rows_by_inverse,
 )
+from jax_tpus_benchmark_physics_simulation_tpu.utils import struct
 
 
 @struct.dataclass
@@ -60,10 +60,9 @@ class GridMD3State:
     overflow: jax.Array  # bool
     time: jax.Array
     # global max cell occupancy at the last (re)binning — the dynamic
-    # a-chunk bound of the Pallas kernel (occupied slots are compacted to
-    # the low indices of each cell, so chunks past ceil(max_occ/a_chunk)
-    # are pure sentinel work and are skipped; ~20% of pair math at the
-    # typical max_occ 28 vs capacity 40). None -> full capacity.
+    # partner-slot bound of the force kernel (occupied slots are compacted
+    # to the low indices of each cell, so slots past it are pure sentinel
+    # work and are skipped). None -> full capacity.
     max_occ: Optional[jax.Array] = None
     # Kahan compensation residuals (compensated=True/"positions")
     crx: Optional[jax.Array] = None
@@ -86,25 +85,14 @@ class GridMD3:
         sigma: float = 1.0,
         epsilon: float = 1.0,
         dt: float = 1e-3,
-        interpret: Optional[bool] = None,
         compensated: bool = False,
-        a_chunk: Optional[int] = None,
-        b_chunk: Optional[int] = None,
-        migrate_compact: bool = True,
-        migrate_k_mov: int = 16,
-        static_cov: Optional[Union[int, str]] = None,
-        static_fallback: Optional[bool] = None,
     ):
         assert grid_fn.dim == 3, "GridMD3 is 3D (grid_md.GridMD covers 2D)"
         self.compensated = compensated
-        # rebuild-permutation variant: compacted-mover kernel (default) vs
-        # the flat parity oracle — see migrate_pallas3's module docstring
-        self.migrate_compact = migrate_compact
-        self.migrate_k_mov = migrate_k_mov
         self.grid_fn = grid_fn
         self.cps = grid_fn.cells_per_side
         self.cap = grid_fn.capacity
-        self.lanes = _round_up(self.cps * self.cps, 128)
+        self.lanes = self.cps * self.cps
         self.box = grid_fn.box
         self.skin = grid_fn.skin
         self.n = grid_fn.n
@@ -112,93 +100,12 @@ class GridMD3:
         self.sentinel = SENTINEL_FACTOR * float(grid_fn.box)
         self.grid_shape = (self.cps, self.cap, self.lanes)
         self.size = self.cps * self.cap * self.lanes
-        self._interpret = interpret
-        self._migrate_cache = {}
-        # static_cov: compile-time occupancy bound for the force kernel
-        # (straight-line cell_pallas3._static_kernel3).
-        #   int  -> PURE static mode: force/energy kernels cover exactly
-        #           static_cov slot rows; any (re)binning whose max
-        #           occupancy exceeds it raises the state's overflow flag —
-        #           the under-coverage is loud, never silent (tests assert).
-        #   "auto" -> HYBRID mode (the lj_fluid 3D production default):
-        #           cov is estimated from the mean cell occupancy
-        #           (m + 2*sqrt(m), rounded up to the sublane multiple of
-        #           8 — measured max_occ 22 at m=14.6, results/
-        #           static_cov_probe2.py), the static kernel runs the hot
-        #           windows, and a dynamic-bound fallback kernel handles
-        #           the rare rebuild with max_occ > cov via one lax.cond
-        #           PER REBUILD PERIOD (hoisted outside the inner window
-        #           loop — a per-window cond measured +0.04 ms/step, a
-        #           per-rebuild one ~1/10th of that). No overflow is
-        #           raised at mo > cov: the fallback is exact.
-        # static_fallback overrides the mode pairing (int + fallback=True
-        # is the test hook for exercising the dynamic branch).
-        if static_cov == "auto":
-            if self.lanes > 1024:
-                # wide-lane geometries: the straight-line kernel's scoped
-                # VMEM scales with lanes (~85M at lanes=1792, needing an
-                # 88M limit against the 128M chip VMEM) AND it measures
-                # SLOWER than the dynamic kernel there (N=1M cps41: hybrid
-                # fixed R=10 122.8M vs dynamic fixed R=10 126.8M psps —
-                # results/RESULTS.md round 5). "auto" keeps the dynamic
-                # kernel past lanes=1024; explicit int static_cov still
-                # builds the static kernel at any lane width that compiles.
-                static_cov = None
-            else:
-                m = self.n / float(self.cps**3)
-                est = int(np.ceil(m + 2.0 * np.sqrt(max(m, 1.0))))
-                static_cov = min(self.cap, _round_up(max(est, 8), 8))
-                if static_fallback is None:
-                    static_fallback = True
-        self.static_cov = static_cov
-        self._static_fallback = bool(static_fallback) and static_cov is not None
-        if self._static_fallback:
-            # hybrid: dynamic kernels are the baseline (+ energy/virial
-            # path), the static pair is the fast window; static chunks
-            # default to (cov, cov) — measured best for the straight-line
-            # kernel at N=100k geometry (results/static_cov_probe.py) —
-            # shrunk by the scoped-VMEM rule below at wide-lane geometries
-            a_s, b_s = self.static_chunks()
-            self.force_kernel = make_grid_force_kernel3(
-                grid_fn, sigma=sigma, epsilon=epsilon, interpret=interpret,
-                a_chunk=a_chunk, b_chunk=b_chunk,
-            )
-            self.energy_kernel = make_grid_force_kernel3(
-                grid_fn, sigma=sigma, epsilon=epsilon, interpret=interpret,
-                with_energy=True, a_chunk=a_chunk, b_chunk=b_chunk,
-            )
-            self.force_kernel_static = make_grid_force_kernel3(
-                grid_fn, sigma=sigma, epsilon=epsilon, interpret=interpret,
-                a_chunk=a_s, b_chunk=b_s, static_cov=static_cov,
-            )
-        else:
-            self.force_kernel = make_grid_force_kernel3(
-                grid_fn, sigma=sigma, epsilon=epsilon, interpret=interpret,
-                a_chunk=a_chunk, b_chunk=b_chunk, static_cov=static_cov,
-            )
-            self.energy_kernel = make_grid_force_kernel3(
-                grid_fn, sigma=sigma, epsilon=epsilon, interpret=interpret,
-                with_energy=True, a_chunk=a_chunk, b_chunk=b_chunk,
-                static_cov=static_cov,
-            )
-            self.force_kernel_static = None
-
-    def static_chunks(self) -> Tuple[int, int]:
-        """(a_chunk, b_chunk) for the static-coverage kernel, scoped-VMEM
-        aware. (cov, cov) measured best at the N=100k geometry (lanes 384,
-        results/static_cov_probe.py) but the kernel's scoped VMEM scales
-        ~ a*b*lanes: at N=1M auto geometry (cps41 -> lanes 1792) the
-        (24,24) variant needs 84.57M against the 64M limit the kernel
-        requests — a hard Mosaic compile error (round-5 probe). Calibrated
-        from that failure: ~82 B per a*b*lane unit; chunks shrink to fit a
-        60M budget. Legal chunk values divide cov and are 8-multiples, so
-        the fallback ladder is (cov,cov) -> (cov,8) -> (8,8)."""
-        cov = self.static_cov
-        budget = 60e6 / 82.0
-        for a_s, b_s in ((cov, cov), (cov, 8), (8, 8)):
-            if a_s * b_s * self.lanes <= budget:
-                return a_s, b_s
-        return 8, 8
+        # the platform picks the implementation (cell_force.choose_impl)
+        self._force_kw = dict(sigma=sigma, epsilon=epsilon)
+        self.force_kernel = make_grid_force(grid_fn, **self._force_kw)
+        self.energy_kernel = make_grid_force(
+            grid_fn, with_energy=True, **self._force_kw
+        )
 
     # -- layout helpers ------------------------------------------------------
     def _slot3(self, position: jax.Array) -> Tuple[jax.Array, jax.Array]:
@@ -255,9 +162,7 @@ class GridMD3:
             .reshape(self.grid_shape)
         )
         max_occ = self._max_occ(occ)
-        if self.static_cov is not None and not self._static_fallback:
-            overflow = overflow | (max_occ > self.static_cov)
-        fxg, fyg, fzg = self.force_kernel(xg, yg, zg, max_occ)
+        fxg, fyg, fzg = self.force_kernel(xg, yg, zg, max_occ=max_occ)
         zeros = jnp.zeros(self.grid_shape, dtype)
         comp = (
             dict(crx=zeros, cry=zeros, crz=zeros, cvx=zeros, cvy=zeros, cvz=zeros)
@@ -276,54 +181,15 @@ class GridMD3:
         )
 
     # -- migration rebuild (sort-free) ----------------------------------------
-    @staticmethod
-    def _shift_lane_plane(v: jax.Array, dy: int, dz: int, ncy: int, ncz: int) -> jax.Array:
-        """Value-level twin of cell_pallas3._shift_plane on the LAST axis:
-        ``out[..., y*ncz + z] = v[..., ((y+dy)%ncy)*ncz + (z+dz)%ncz]`` for
-        live lanes (two rolls + one seam select per axis). Padding lanes
-        (col >= ncy*ncz) end up with garbage; callers only read live lanes
-        (the rebuild's masks are False there). Live lanes never READ padding:
-        non-seam lanes stay within the live block and seam lanes take the
-        wrap roll, which lands back inside it."""
-        n = v.shape[-1]
-        col = jax.lax.broadcasted_iota(jnp.int32, v.shape, v.ndim - 1)
-        if dz:
-            main = jnp.roll(v, (-dz) % n, axis=-1)
-            if dz == 1:
-                wrap = jnp.roll(v, (ncz - 1) % n, axis=-1)
-                v = jnp.where(col % ncz == ncz - 1, wrap, main)
-            else:
-                wrap = jnp.roll(v, (-(ncz - 1)) % n, axis=-1)
-                v = jnp.where(col % ncz == 0, wrap, main)
-        if dy:
-            main = jnp.roll(v, (-dy * ncz) % n, axis=-1)
-            if dy == 1:
-                wrap = jnp.roll(v, ((ncy - 1) * ncz) % n, axis=-1)
-                v = jnp.where(col // ncz == ncy - 1, wrap, main)
-            else:
-                wrap = jnp.roll(v, (-(ncy - 1) * ncz) % n, axis=-1)
-                v = jnp.where(col // ncz == 0, wrap, main)
-        return v
-
     def _migration_dest3(self, s: GridMD3State):
         """Allocation phase of the 3D migration rebuild. Returns wrapped
-        coordinates, the SOURCE-frame code grid ``dcode * cap + target_a``
-        consumed by the scatter-free migrate kernel (migrate_pallas3), the
-        post-rebuild occupancy grid, the per-slot flat destination index
-        (``self.size`` = dropped; used only by the GSPMD rows variant),
-        and the overflow flag.
-
-        Runs entirely in the PACKED (ncx, C, P) layout: y/z cell rolls are
-        lane-axis rolls with periodic-seam selects (_shift_lane_plane — the
-        same scheme the force kernel uses for partner planes), x rolls are
-        plain axis-0 rolls. The earlier unpacked (ncx, C, ncy, ncz) variant
-        paid minor-dims-(17,17) tiling (~13% lane utilization) on every one
-        of the 27 direction passes plus a relayout per field: measured
-        8.5 ms -> this form ~4-5 ms per rebuild at 3D N=100k cap 48.
-        Otherwise identical to grid_md.GridMD._migration_dest (see its
-        docstring for the allocation argument)."""
+        coordinates, the per-slot flat destination index (``self.size`` =
+        dropped) and the overflow flag. The (y, z) cell rolls are rolls of
+        the lane axis viewed as (ncy, ncz); otherwise identical to
+        grid_md.GridMD._migration_dest (see its comments for the allocation
+        argument)."""
         cps, cap, box, lanes = self.cps, self.cap, self.box, self.lanes
-        shp = self.grid_shape  # (ncx, C, P)
+        shp = self.grid_shape  # (ncx, C, L)
 
         occ_b = s.occ > 0.5
         xw = jnp.mod(s.xg, box)
@@ -332,7 +198,7 @@ class GridMD3:
 
         cx = jax.lax.broadcasted_iota(jnp.int32, shp, 0)
         col = jax.lax.broadcasted_iota(jnp.int32, shp, 2)
-        cy = col // cps  # live lanes: lane = cy*ncz + cz (ncy = ncz = cps)
+        cy = col // cps  # lane = cy*ncz + cz (ncy = ncz = cps)
         cz = col % cps
         cell = box / cps
         txc = jnp.clip((xw // cell).astype(jnp.int32), 0, cps - 1)
@@ -356,12 +222,9 @@ class GridMD3:
         tzc = (cz + dzc) % cps
 
         def roll_cells(v, dx, dy, dz):
-            if dx:
-                v = jnp.roll(v, dx, axis=0)
-            if dy or dz:
-                # roll forward by (dy, dz) == read from (-dy, -dz)
-                v = self._shift_lane_plane(v, -dy, -dz, cps, cps)
-            return v
+            """out[X, :, (Y, Z)] = v[X - dx, :, (Y - dy, Z - dz)] (periodic)."""
+            u = v.reshape(v.shape[:2] + (cps, cps))
+            return jnp.roll(u, (dx, dy, dz), axis=(0, 2, 3)).reshape(v.shape)
 
         dirs = [
             (dx, dy, dz)
@@ -369,15 +232,10 @@ class GridMD3:
             for dy in (-1, 0, 1)
             for dz in (-1, 0, 1)
         ]
-        # Batched allocation over all 27 direction classes at once. The
-        # earlier form looped the 27 classes, each iteration issuing a
-        # big-array cumsum/sum/select — 27 small launch-bound passes that
-        # dominated the rebuild (~3 ms of 5.7 at N=100k). Here ONE one-hot
-        # stack + ONE cumsum computes every class's in-cell ranks; the
-        # sequential base accumulation becomes an exclusive cumsum over the
-        # (tiny) per-class count arrays along the class axis, so the
-        # allocation order — and therefore the resulting permutation — is
-        # bit-identical to the loop's.
+        # Batched allocation over all 27 direction classes at once: ONE
+        # one-hot stack + ONE cumsum computes every class's in-cell ranks;
+        # the sequential base accumulation is an exclusive cumsum over the
+        # (tiny) per-class count arrays along the class axis.
         dcode = ((dxc + 1) * 3 + (dyc + 1)) * 3 + (dzc + 1)  # class in 0..26
         dm = (
             jax.lax.broadcasted_iota(jnp.int32, (27,) + shp, 0) == dcode[None]
@@ -408,115 +266,24 @@ class GridMD3:
         overflow = overflow | slot_overflow
         valid = occ_b & (target_a >= 0) & (target_a < cap)
 
-        # SOURCE-frame code for the scatter-free migrate kernel: the slot's
-        # direction class and its ALLOCATED target slot, -1 where invalid.
-        # Classes occupy disjoint code ranges [j*cap, (j+1)*cap), so the
-        # kernel's per-direction probe can never cross-match (the overflow
-        # guard above keeps target_a < cap out of band).
-        scode = jnp.where(valid, dcode * cap + target_a, -1)
-
-        # post-rebuild occupancy: slots fill compactly from 0, so
-        # occ'[t, a'] = a' < new_count(t); padding lanes carry rolled
-        # garbage counts and are masked off.
-        tot = jnp.minimum(jnp.sum(rc, axis=0), cap)  # (ncx, 1, P)
-        slot_i = jax.lax.broadcasted_iota(jnp.int32, shp, 1)
-        occ_new = ((slot_i < tot) & (col < cps * cps)).astype(s.occ.dtype)
-
-        # flat destination in the same packed layout; OOB/pad -> dropped.
-        # Only the GSPMD rows-permutation rebuild consumes this (the
-        # Pallas rebuild is scatter-free).
+        # flat destination in the same layout; OOB -> dropped
         tlane = tyc * cps + tzc
         dest = ((txc * cap + target_a) * lanes + tlane).astype(jnp.int32)
         dest = jnp.where(valid, dest, self.size)
-        return xw, yw, zw, scode, occ_new, dest.reshape(-1), overflow
+        return xw, yw, zw, dest.reshape(-1), overflow
 
-    def _migrate_call(self, n_fields: int, fills):
-        """Cached migrate_pallas3 kernel for this grid (descriptor-free
-        dense permutation; see migrate_pallas3's module docstring)."""
-        key = (n_fields, tuple(fills))
-        cached = self._migrate_cache.get(key)
-        if cached is None:
-            from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.migrate_pallas3 import (
-                make_migrate_kernel3,
-            )
-
-            cached = make_migrate_kernel3(
-                self.cps, self.cap, n_fields, fills,
-                interpret=self._interpret,
-                compact=self.migrate_compact, k_mov=self.migrate_k_mov,
-            )
-            self._migrate_cache[key] = cached
-        return cached
-
+    @named_scope("rebuild")
     def _rebuild_migrate(self, s: GridMD3State) -> GridMD3State:
         """3D migration re-binning: between rebuilds every particle moved
         < skin/2 < cell size, so its new cell is one of the 27 neighbors.
         Allocation via rolls + small-axis cumsums (_migration_dest3); the
-        slot permutation itself is the dense migrate_pallas3 kernel
-        consuming the source-frame code grid — ZERO descriptor ops in the
-        whole rebuild (the code grid's former single-column scatter
-        measured 1.5 ms of the 5.6 ms N=100k rebuild,
-        results/rebuild3_phase_probe.py). The inverse-permute variant
-        (:meth:`_rebuild_migrate_rows`) is descriptor-bound at ~11 ms for
-        3D N=100k's 313k slots (results/md3_breakdown_probe.py); the dense
-        kernel does the same permutation as VPU compare/selects bounded by
-        the pre-rebuild ``max_occ``. Coordinates are wrapped back into
+        slot permutation is an inverse-index scatter + one (size, F) row
+        gather (grid_md.permute_rows_by_inverse; pid rides along as f32,
+        exact for n < 2^24). Pure jnp, so GSPMD partitions it on the sharded
+        state of ShardedGridMD3 as well. Coordinates are wrapped back into
         [0, box) here (the only place they ever are) and empty slots
         re-filled with the sentinel."""
-        gs = self.grid_shape
-        xw, yw, zw, scode, occ_new, _dest, overflow = self._migration_dest3(s)
-
-        assert self.n < (1 << 24), "pid-in-f32 packing requires n < 2^24"
-        dtype = s.xg.dtype
-        fields = [xw, yw, zw, s.vxg, s.vyg, s.vzg,
-                  s.fxg, s.fyg, s.fzg, s.pid.astype(dtype)]
-        fills = [self.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
-        if s.crx is not None:
-            fields += [s.crx, s.cry, s.crz, s.cvx, s.cvy, s.cvz]
-            fills += [0.0] * 6
-        new_mo = self._max_occ(occ_new)
-        if self.static_cov is not None and not self._static_fallback:
-            # the static force kernel covers only static_cov slot rows —
-            # a denser rebuild MUST trip the flag, never lose pairs silently
-            # (in hybrid/fallback mode the dynamic kernel handles mo > cov
-            # exactly, so no flag — same guard as init/_rebuild/_rows)
-            overflow = overflow | (new_mo > self.static_cov)
-        out, mov_of = self._migrate_call(len(fields), fills)(
-            s.max_occ, new_mo, scode, *fields
-        )
-
-        zeros = jnp.zeros(gs, dtype)
-        comp = (
-            dict(crx=out[10], cry=out[11], crz=out[12],
-                 cvx=out[13], cvy=out[14], cvz=out[15])
-            if s.crx is not None
-            else {}
-        )
-        return s.replace(
-            xg=out[0], yg=out[1], zg=out[2],
-            vxg=out[3], vyg=out[4], vzg=out[5],
-            fxg=out[6], fyg=out[7], fzg=out[8],
-            occ=occ_new,
-            pid=out[9].astype(jnp.int32),
-            dispx=zeros, dispy=zeros, dispz=zeros,
-            dmax2=jnp.zeros((), dtype),
-            # mov_of: a cell exceeded the mover-compaction capacity (k_mov)
-            # and the permutation dropped particles — NEVER silent
-            overflow=overflow | mov_of,
-            max_occ=new_mo,
-            **comp,
-        )
-
-    def _rebuild_migrate_rows(self, s: GridMD3State) -> GridMD3State:
-        """Row-permutation variant of :meth:`_rebuild_migrate`: the same
-        allocation, applied with an inverse-index scatter + (size, F) row
-        gather (grid_md.permute_rows_by_inverse: 23x faster than the
-        (size, F) row scatter at 2.48M slots; pid rides along as f32, exact
-        n < 2^24). Slower on one chip (descriptor-bound at ~84M rows/s —
-        ~11 ms at 3D N=100k) but pure jnp: GSPMD can shard it, so
-        ShardedGridMD3 rebuilds with this (a pallas_call cannot be
-        auto-partitioned). Pad-lane rows carry dest=size and drop."""
-        xw, yw, zw, _scode, _occ, dest_flat, overflow = self._migration_dest3(s)
+        xw, yw, zw, dest_flat, overflow = self._migration_dest3(s)
         assert self.n < (1 << 24), "pid-in-f32 packing requires n < 2^24"
         dtype = s.xg.dtype
         fields = [xw, yw, zw, s.vxg, s.vyg, s.vzg,
@@ -540,8 +307,6 @@ class GridMD3:
         )
         occ_new = take(9)
         new_mo = self._max_occ(occ_new)
-        if self.static_cov is not None and not self._static_fallback:
-            overflow = overflow | (new_mo > self.static_cov)
         return s.replace(
             xg=take(0), yg=take(1), zg=take(2),
             vxg=take(3), vyg=take(4), vzg=take(5),
@@ -596,8 +361,6 @@ class GridMD3:
         )
         occ_new = scat(s.occ)
         new_mo = self._max_occ(occ_new)
-        if self.static_cov is not None and not self._static_fallback:
-            overflow = overflow | (new_mo > self.static_cov)
         return s.replace(
             xg=scat(x.reshape(self.grid_shape), fill=self.sentinel),
             yg=scat(y.reshape(self.grid_shape)),
@@ -686,7 +449,7 @@ class GridMD3:
                     x, y, z = x + incx, y + incy, z + incz
                 dpx, dpy, dpz = dpx + incx, dpy + incy, dpz + incz
                 dm = jnp.maximum(dm, dpx * dpx + dpy * dpy + dpz * dpz)
-                fx, fy, fz = force_fn(x, y, z, mo)
+                fx, fy, fz = force_fn(x, y, z, max_occ=mo)
                 if comp and not pos_only and thermostat is None:
                     vhx, cvx = kadd(vhx, cvx, dt * fx)
                     vhy, cvy = kadd(vhy, cvy, dt * fy)
@@ -725,14 +488,11 @@ class GridMD3:
 
         return window
 
-    def _window_builder(self, n_inner: int, thermostat=None, static: bool = False):
+    def _window_builder(self, n_inner: int, thermostat=None):
         """Integrator-window factory hook (see grid_md.GridMD._window_builder):
         the sharded subclass overrides this one method — halo force +
-        shard_map wrapper — and inherits every driver below, including the
-        hybrid static/dynamic dispatch. ``static=True`` builds the window on
-        the straight-line static-coverage kernel (hybrid mode only)."""
-        kern = self.force_kernel_static if static else self.force_kernel
-        return self._make_window(kern, n_inner, thermostat=thermostat)
+        shard_map wrapper — and inherits every driver below."""
+        return self._make_window(self.force_kernel, n_inner, thermostat=thermostat)
 
     def step_nocheck(self, s: GridMD3State) -> GridMD3State:
         return self._window_builder(1)(s)
@@ -745,17 +505,8 @@ class GridMD3:
         """``chunk(s) -> s``: one displacement-gated rebuild + a branch-free
         n_inner-step leapfrog window (see grid_md.GridMD.make_chunk_step for
         the gate/window sizing contract; ``thermostat=(gamma, kT)`` -> BAOAB
-        Langevin windows). In hybrid static mode the window itself is a
-        cond on ``max_occ <= cov`` (static fast path / dynamic fallback)."""
+        Langevin windows)."""
         window = self._window_builder(n_inner, thermostat=thermostat)
-        if self._static_fallback:
-            window_s = self._window_builder(
-                n_inner, thermostat=thermostat, static=True
-            )
-            window_d, cov = window, self.static_cov
-            window = lambda s: jax.lax.cond(
-                s.max_occ <= cov, window_s, window_d, s
-            )
 
         def chunk(s: GridMD3State) -> GridMD3State:
             s = jax.lax.cond(
@@ -772,40 +523,22 @@ class GridMD3:
         self, n_steps: int, n_inner: int, gate_frac: float = 0.25, thermostat=None
     ):
         """Cond-free nested-while production driver — 3D twin of
-        grid_md.GridMD.make_production_run (see there for the measured
-        rationale and the exact-step/trailing-rebuild contract).
-
-        Hybrid static mode: ``max_occ`` is constant between rebuilds, so
-        the static/dynamic choice is ONE lax.cond around the whole inner
-        window loop — per rebuild period, not per window (a per-window
-        cond measured +0.04 ms/step = 8M psps at 3D N=100k,
-        results/static_cov_probe2.py; hoisted it is ~1/10th of that)."""
+        grid_md.GridMD.make_production_run (see there for the rationale and
+        the exact-step/trailing-rebuild contract)."""
         assert n_steps % n_inner == 0, (n_steps, n_inner)
         window = self._window_builder(n_inner, thermostat=thermostat)
 
-        def spin(win):
+        def run(s: GridMD3State) -> GridMD3State:
             def inner_cond(c):
                 t, done = c
                 return (done < n_steps) & ~self._needs_rebuild(t, frac=gate_frac)
 
             def inner_body(c):
                 t, done = c
-                return win(t), done + n_inner
+                return window(t), done + n_inner
 
-            return lambda c: jax.lax.while_loop(inner_cond, inner_body, c)
-
-        if self._static_fallback:
-            window_s = self._window_builder(
-                n_inner, thermostat=thermostat, static=True
-            )
-            spin_s, spin_d, cov = spin(window_s), spin(window), self.static_cov
-            inner = lambda c: jax.lax.cond(c[0].max_occ <= cov, spin_s, spin_d, c)
-        else:
-            inner = spin(window)
-
-        def run(s: GridMD3State) -> GridMD3State:
             def outer_body(c):
-                c = inner(c)
+                c = jax.lax.while_loop(inner_cond, inner_body, c)
                 t, done = c
                 return self._rebuild_migrate(t), done
 
@@ -822,10 +555,7 @@ class GridMD3:
     def make_production_run_fixed(self, n_steps: int, cadence: int, thermostat=None):
         """Fixed-cadence production driver: a single fori_loop of
         ``rebuild -> cadence-step window`` blocks — zero gate evaluation and
-        zero dynamic-while machinery, which measured 0.038 ms/step at k=1 on
-        3D N=100k (results/static_cov_probe2/3/4.py: gated-best 150.0M psps
-        vs fixed R=10 154.5M, R=11 156.3M, both violation-clean; R=12 trips
-        the skin/2 flag exactly at the ~11.9-step drift horizon).
+        zero dynamic-while machinery.
 
         Safety demotes from the displacement gate to the window's existing
         skin/2 violation flag: a cadence outsized for the actual temperature
@@ -841,20 +571,9 @@ class GridMD3:
             "is already paid"
         )
         window = self._window_builder(cadence)
-        if self._static_fallback:
-            window_s = self._window_builder(cadence, static=True)
-            cov = self.static_cov
-            win_d = window
-            window = lambda s: jax.lax.cond(s.max_occ <= cov, window_s, win_d, s)
         nb, rem = divmod(n_steps, cadence)
         if rem:
             tail = self._window_builder(rem)
-            if self._static_fallback:
-                tail_s = self._window_builder(rem, static=True)
-                cov_t, tail_d = self.static_cov, tail
-                tail = lambda s: jax.lax.cond(
-                    s.max_occ <= cov_t, tail_s, tail_d, s
-                )
 
         def run(s: GridMD3State) -> GridMD3State:
             def body(i, t):
@@ -873,29 +592,18 @@ class GridMD3:
         displacement between rebuilds is ~ballistic, ``R * |v| * dt``, and
         the max of ``N * n_steps`` one-axis speed samples is
         ``sqrt(2 ln(N n_steps)) * sqrt(kT)`` — the cadence keeps that
-        excursion under ``0.5 * skin`` with a 7% buffer.
-
-        The run-length term is what the round-4 fixed-rate fit (5.5 *
-        sqrt(kT) * dt, 0.84x margin -> R=10 at N=100k) was missing: R=10
-        stayed clean over the 440-step probes (this formula also returns
-        10 there) but tripped the skin/2 flag at ~150k steps with EITHER
-        k_mov (round-5 long-run diagnosis); at n_steps=100k-1M it returns
-        9, validated clean over the 1M-step drift run
-        (results/drift_r5_probe.py). Pass the actual production length;
-        the log makes the result insensitive to it. If the flag still
-        trips (loud, never silent), fall back to the gated driver."""
+        excursion under ``0.5 * skin`` with a 7% buffer. The run-length
+        term matters: a cadence sized for a short run trips the skin/2 flag
+        in a long one. Pass the actual production length; the log makes
+        the result insensitive to it. If the flag still trips (loud, never
+        silent), fall back to the gated driver."""
         samples = max(float(self.n) * max(n_steps, 1), math.e)
         vmax = math.sqrt(2.0 * math.log(samples)) * kt**0.5
         return max(1, int(0.93 * 0.5 * self.skin / (vmax * self.dt)))
 
     def auto_chunk_params(self, kt: float = 1.0) -> Tuple[int, float]:
         """``(n_inner, gate_frac)`` sized together — see
-        grid_md.GridMD.auto_chunk_params. Round-3 re-measure with the
-        migrate_pallas3 rebuild on an EQUILIBRATED kT=1 state
-        (`results/gate_tuning_probe3.py`, post async-fix): near-flat,
-        0.40/k=4 best at 78.0M psps vs 0.45/k=2's 77.5M and 0.25/k=1's
-        69.9M — the same 0.40/full-window preference as 2D, kept for one
-        shared rule."""
+        grid_md.GridMD.auto_chunk_params (same rule and preferences)."""
         prefer = 0.40 if self.n >= 50_000 else 0.35
         for gate in (0.45, 0.4, 0.35, 0.3, 0.25):
             if gate > prefer:
@@ -918,12 +626,12 @@ class GridMD3:
         return 0.5 * jnp.sum((s.vxg**2 + s.vyg**2 + s.vzg**2) * s.occ)
 
     def potential_energy(self, s: GridMD3State) -> jax.Array:
-        _, _, _, e, _ = self.energy_kernel(s.xg, s.yg, s.zg, s.max_occ)
+        _, _, _, e, _ = self.energy_kernel(s.xg, s.yg, s.zg, max_occ=s.max_occ)
         return 0.5 * jnp.sum(e)
 
     def virial(self, s: GridMD3State) -> jax.Array:
         """Pair virial (see grid_md.GridMD.virial)."""
-        _, _, _, _, w = self.energy_kernel(s.xg, s.yg, s.zg, s.max_occ)
+        _, _, _, _, w = self.energy_kernel(s.xg, s.yg, s.zg, max_occ=s.max_occ)
         return 0.5 * jnp.sum(w)
 
     def pressure(self, s: GridMD3State) -> jax.Array:

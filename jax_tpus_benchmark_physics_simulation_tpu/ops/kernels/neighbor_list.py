@@ -3,7 +3,7 @@ shapes) — the O(N) force path the reference lacks entirely (SURVEY.md §5
 "Long-context": the reference's scaling wall is the dense O(N^2) pair matrix;
 this is the cutoff structure that removes it).
 
-Design (sort-based, TPU-friendly — no dynamic shapes anywhere):
+Design (sort-based — no dynamic shapes anywhere):
 1. bin particles into cells of side >= cutoff + skin (cell id per particle);
 2. argsort by cell id; rank-within-cell = position - segment start
    (via searchsorted over the sorted ids);
@@ -25,7 +25,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from jax_tpus_benchmark_physics_simulation_tpu.utils import struct
 
 from jax_tpus_benchmark_physics_simulation_tpu.ops.forces.pbc import minimum_image
 

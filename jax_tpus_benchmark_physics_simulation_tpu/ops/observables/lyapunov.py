@@ -7,8 +7,8 @@ the host. Two methods here:
 - ``lyapunov_tangent``: Benettin tangent-space method — propagate a unit
   perturbation through ``jax.jvp`` of the step function inside the same scan,
   renormalizing each step and accumulating log stretch factors. One device
-  program, numerically robust (no saturation of the perturbation), and the
-  TPU-native answer (SURVEY.md §2b calls this out).
+  program, numerically robust (no saturation of the perturbation); SURVEY.md
+  §2b calls this out.
 - ``lyapunov_two_trajectory``: the reference's estimator (lambda = mean over t
   of log(delta(t)/d0)/t) as a device-side computation for parity checks.
 """

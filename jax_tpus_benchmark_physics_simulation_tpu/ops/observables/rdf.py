@@ -4,14 +4,14 @@ Reference: ``_calculate_g_r_internal`` at molecular_dynamics...:108-131
 (per-snapshot O(N^2) distances + ``jnp.histogram`` over ``triu_indices``,
 vmapped over snapshots, normalized by ideal-gas shell counts).
 
-TPU-native design:
+Design:
 - For large systems the dense (N, N) distance matrix cannot exist (40 GB at
   N = 100k); g(r) is estimated from a fixed random subset of particles
   (``max_particles``), which is an unbiased estimator of the same g(r) with
   slightly higher variance — the subset's own pair density normalizes it.
 - Two histogram algorithms, chosen by compute shape:
   * comparison-based (counts[b] = #(r2 < edge[b+1]^2) - #(r2 < edge[b]^2)):
-    pure VPU compare+reduce, no scatters — fastest when nbins is modest;
+    pure compare+reduce, no scatters — fastest when nbins is modest;
   * bucketize + scatter-add: O(pairs) when nbins is large (wide boxes make
     nbins ~ box / (2 dr) in the thousands, where the comparison method's
     O(nbins * pairs) explodes).
@@ -77,11 +77,9 @@ def radial_distribution(
             below = jnp.sum(r2[None, :] < edges2[:, None], axis=1).astype(jnp.float32)
             return below[1:] - below[:-1]
         # Uniform edges (linspace) -> the bin index is pure arithmetic:
-        # floor(r / bin_w). searchsorted's binary-search rounds cost ~9
-        # descriptor-bound gather passes over the pair set (~1.6 s/snapshot
-        # at 4096^2 pairs on v5e, round-5 measurement) for the exact same
-        # answer; one single-column scatter-add (the ~84M rows/s rate,
-        # results/gather_width_probe.py) is all the descriptor work needed.
+        # floor(r / bin_w), the same answer as searchsorted's binary-search
+        # rounds (~9 gather passes over the pair set) at one single-column
+        # scatter-add.
         bin_w = r_max / nbins
         r = jnp.sqrt(r2)
         idx = jnp.minimum((r / bin_w).astype(jnp.int32), nbins)
@@ -91,8 +89,7 @@ def radial_distribution(
 
     # Sequential over snapshots, accumulated in place: batching would
     # materialize an O(S * nbins * n^2) (compare) or O(S * n^2) (bucketize)
-    # intermediate, and the stacked lax.map form crashed the v5e worker
-    # outright at S=100 snapshots (round-5 CLI g(r) phase; S<=20 survived).
+    # intermediate.
     def body(i, acc):
         return acc + snapshot_hist(r_history[i])
 

@@ -8,8 +8,7 @@ ppermutes):
 
 - halo exchange: each device ppermutes its first x-row of (x, y, z) to its
   left neighbor (the seam device adds +box to the received x row);
-- the packed-plane 3D Pallas kernel (cell_pallas3 ``.raw``) runs on the
-  local rows;
+- the 3D cell force (``.raw``) runs on the local rows;
 - the Newton reaction buffer's last row is delivered to the right neighbor
   by one more ppermute;
 - the leapfrog kick+drift is elementwise-local; the displacement monitor
@@ -21,14 +20,13 @@ arithmetic. Migration re-binning runs OUTSIDE shard_map as plain jnp on the
 GSPMD-sharded state (XLA inserts the cross-boundary collectives).
 
 Validated against the single-device 3D engine on the virtual CPU mesh
-(tests/test_grid_md3_sharded.py). Beyond-reference scope: the reference MD
+(tests/test_grid_md3_sharded.py) and on four GPUs by
+``chip_smoke.py --four``. Beyond-reference scope: the reference MD
 is dim=2-hardcoded AND single-device (molecular_dynamics_jax_single-host_
 workload.py:26).
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -36,8 +34,8 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_dense import CellGridFn
-from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_pallas3 import (
-    make_grid_force_kernel3,
+from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_force import (
+    make_grid_force,
 )
 from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.grid_md3 import (
     GridMD3,
@@ -48,104 +46,6 @@ from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.grid_md3 import (
 class ShardedGridMD3(GridMD3):
     """GridMD3 with the x-row axis sharded over ``mesh`` (axis name 'x')."""
 
-    # GSPMD cannot auto-partition a pallas_call, but the dense migrate
-    # kernel only reads prev/self/next x-rows — so the allocation stays
-    # GSPMD and the permutation runs INSIDE shard_map on local rows with
-    # one-row halos ppermuted in, the source-frame code grid exchanged
-    # exactly like the fields (same design as 2D's
-    # ShardedGridMD._rebuild_migrate; the GSPMD rows permutation it
-    # replaces was the entire sharding overhead in the round-3 ablation).
-    def _rebuild_migrate(self, s: GridMD3State) -> GridMD3State:
-        gs = self.grid_shape
-        xw, yw, zw, scode, occ_new, _dest, overflow = self._migration_dest3(s)
-
-        assert self.n < (1 << 24), "pid-in-f32 packing requires n < 2^24"
-        dtype = s.xg.dtype
-        fields = [xw, yw, zw, s.vxg, s.vyg, s.vzg,
-                  s.fxg, s.fyg, s.fzg, s.pid.astype(dtype)]
-        fills = [self.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
-        if s.crx is not None:
-            fields += [s.crx, s.cry, s.crz, s.cvx, s.cvy, s.cvz]
-            fills += [0.0] * 6
-
-        migrate = self._migrate_call_local(len(fields), fills)
-        new_mo = self._max_occ(occ_new)
-        ax, p = self.axis_name, self.n_shards
-        fwd = [(i, (i - 1) % p) for i in range(p)]  # receive right nbr's 1st row
-        bwd = [(i, (i + 1) % p) for i in range(p)]  # receive left nbr's last row
-
-        def halo(f):
-            prev = jnp.concatenate(
-                [lax.ppermute(f[-1:], ax, bwd), f[:-1]], axis=0
-            )
-            nxt = jnp.concatenate(
-                [f[1:], lax.ppermute(f[0:1], ax, fwd)], axis=0
-            )
-            return prev, nxt
-
-        def local_migrate(mo, nmo, code, *fs):
-            # compact BEFORE the exchange: only the (K, P) mover planes
-            # cross shard boundaries (the stay direction never leaves its
-            # x-row), so the halo is k_mov rows instead of cap rows
-            ccode, cfs, _cnt, mov_of = migrate.compact_fields(code, list(fs))
-            cprev, cnext = halo(ccode)
-            halos = [halo(cf) for cf in cfs]
-            out = migrate.raw(
-                mo, nmo, code, list(fs),
-                (cprev, ccode, cnext),
-                ([h[0] for h in halos], cfs, [h[1] for h in halos]),
-            )
-            return out + (lax.pmax(mov_of.astype(jnp.int32), ax),)
-
-        arr = P(self.axis_name)
-        out = jax.shard_map(
-            local_migrate,
-            mesh=self.mesh,
-            in_specs=(P(), P()) + (arr,) * (1 + len(fields)),
-            out_specs=(arr,) * len(fields) + (P(),),
-            check_vma=False,
-        )(s.max_occ, new_mo, scode, *fields)
-        mov_of = out[-1] > 0
-
-        zeros = jnp.zeros(gs, dtype)
-        comp = (
-            dict(crx=out[10], cry=out[11], crz=out[12],
-                 cvx=out[13], cvy=out[14], cvz=out[15])
-            if s.crx is not None
-            else {}
-        )
-        return s.replace(
-            xg=out[0], yg=out[1], zg=out[2],
-            vxg=out[3], vyg=out[4], vzg=out[5],
-            fxg=out[6], fyg=out[7], fzg=out[8],
-            occ=occ_new,
-            pid=out[9].astype(jnp.int32),
-            dispx=zeros, dispy=zeros, dispz=zeros,
-            dmax2=jnp.zeros((), dtype),
-            overflow=overflow | mov_of,
-            max_occ=new_mo,
-            **comp,
-        )
-
-    def _migrate_call_local(self, n_fields: int, fills):
-        """Cached LOCAL-rows migrate kernel (n_rows = x-rows per device)."""
-        key = ("local", n_fields, tuple(fills))
-        cached = self._migrate_cache.get(key)
-        if cached is None:
-            from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.migrate_pallas3 import (
-                make_migrate_kernel3,
-            )
-
-            # the sharded rebuild requires the compact build (.raw's
-            # explicit-halo mode exchanges K-row compact planes only)
-            cached = make_migrate_kernel3(
-                self.cps, self.cap, n_fields, fills,
-                interpret=self._interpret, n_rows=self.rows_local,
-                compact=True, k_mov=self.migrate_k_mov,
-            )
-            self._migrate_cache[key] = cached
-        return cached
-
     def __init__(
         self,
         grid_fn: CellGridFn,
@@ -154,22 +54,14 @@ class ShardedGridMD3(GridMD3):
         sigma: float = 1.0,
         epsilon: float = 1.0,
         dt: float = 1e-3,
-        interpret: Optional[bool] = None,
         compensated: bool = False,
-        static_cov=None,
-        static_fallback: Optional[bool] = None,
-        migrate_k_mov: int = 16,
     ):
         super().__init__(
             grid_fn,
             sigma=sigma,
             epsilon=epsilon,
             dt=dt,
-            interpret=interpret,
             compensated=compensated,
-            static_cov=static_cov,
-            static_fallback=static_fallback,
-            migrate_k_mov=migrate_k_mov,
         )
         self.mesh = mesh
         self.axis_name = axis_name
@@ -179,32 +71,12 @@ class ShardedGridMD3(GridMD3):
                 f"cells_per_side {self.cps} not divisible by mesh size {self.n_shards}"
             )
         self.rows_local = self.cps // self.n_shards
-        # pure static mode: the LOCAL kernel itself is the straight-line
-        # static variant (the overflow contract lives in the inherited
-        # rebuild paths); hybrid mode keeps the dynamic local kernel here
-        # and adds the static one below for the fast window branch.
-        pure_cov = None if self._static_fallback else self.static_cov
-        chunkkw = {}
-        if pure_cov:
-            a_s, b_s = self.static_chunks()  # scoped-VMEM-aware (grid_md3)
-            chunkkw = dict(a_chunk=a_s, b_chunk=b_s)
-        self._local_force = make_grid_force_kernel3(
-            grid_fn, sigma=sigma, epsilon=epsilon, interpret=interpret,
-            n_rows=self.rows_local, static_cov=pure_cov, **chunkkw,
+        self._local_force = make_grid_force(
+            grid_fn, n_rows=self.rows_local, **self._force_kw
         ).raw
-        self._local_energy = make_grid_force_kernel3(
-            grid_fn, sigma=sigma, epsilon=epsilon, interpret=interpret,
-            n_rows=self.rows_local, with_energy=True,
+        self._local_energy = make_grid_force(
+            grid_fn, n_rows=self.rows_local, with_energy=True, **self._force_kw
         ).raw
-        if self._static_fallback:
-            a_s, b_s = self.static_chunks()  # scoped-VMEM-aware (grid_md3)
-            self._local_force_static = make_grid_force_kernel3(
-                grid_fn, sigma=sigma, epsilon=epsilon, interpret=interpret,
-                n_rows=self.rows_local, static_cov=self.static_cov,
-                a_chunk=a_s, b_chunk=b_s,
-            ).raw
-        else:
-            self._local_force_static = None
 
     def prepare(self, state: GridMD3State) -> GridMD3State:
         return self.shard_state(state)
@@ -242,13 +114,7 @@ class ShardedGridMD3(GridMD3):
         return jnp.concatenate([halo, r[:-1]], axis=0)
 
     def _halo_force(self, xg, yg, zg, max_occ=None):
-        return self._fold_halo_force(self._local_force, xg, yg, zg, max_occ)
-
-    def _halo_force_static(self, xg, yg, zg, max_occ=None):
-        return self._fold_halo_force(self._local_force_static, xg, yg, zg, max_occ)
-
-    def _fold_halo_force(self, local, xg, yg, zg, max_occ):
-        fx, fy, fz, rfx, rfy, rfz = local(
+        fx, fy, fz, rfx, rfy, rfz = self._local_force(
             xg, self._with_halo(xg, seam_delta=self.box),
             yg, self._with_halo(yg),
             zg, self._with_halo(zg),
@@ -261,15 +127,14 @@ class ShardedGridMD3(GridMD3):
         )
 
     # -- sharded windows --------------------------------------------------------
-    def _window_builder(self, n_inner: int, thermostat=None, static: bool = False):
+    def _window_builder(self, n_inner: int, thermostat=None):
         """Sharded window hook (see grid_md_sharded.ShardedGridMD.
         _window_builder): base-class drivers — gated chunk, cond-free
-        production while-loops, fixed-cadence fori, INCLUDING the hybrid
-        static/dynamic max_occ cond — run at GSPMD level and build each
-        window through this shard_map wrapper."""
+        production while-loops, fixed-cadence fori — run at GSPMD level and
+        build each window through this shard_map wrapper."""
         ax = self.axis_name
         window = self._make_window(
-            self._halo_force_static if static else self._halo_force,
+            self._halo_force,
             n_inner,
             reduce_max=lambda v: lax.pmax(v, ax),
             thermostat=thermostat,

@@ -9,7 +9,7 @@ Per inner step (shard_map, all local except two one-row ppermutes):
   neighbor, providing the "next row" the Newton force kernel needs (the seam
   device adds +box to the received x row — the same periodic-seam handling
   the single-chip kernel does internally via its program index);
-- the Pallas cell kernel runs on the local rows;
+- the cell force (``.raw``) runs on the local rows;
 - the Newton reaction buffer's last row is the force the local edge exerts
   on the neighbor's first row — one more ppermute delivers it;
 - the leapfrog kick+drift is elementwise-local; the displacement monitor
@@ -20,18 +20,17 @@ injects only its halo force function and the pmax reduction, so plain,
 Kahan-compensated, and compensated='positions' configs execute IDENTICAL
 arithmetic on one chip and on a mesh.
 
-Cell re-binning (migration) runs OUTSIDE shard_map as plain jnp on the
-GSPMD-sharded state every ~n_inner steps: XLA inserts the (cheap, amortized)
-collectives for the cross-boundary rolls/scatters automatically. This keeps
-the subtle allocation code identical to the proven single-device version.
+Cell re-binning (migration) runs OUTSIDE shard_map as the single-device
+engine's plain-jnp gather rebuild on the GSPMD-sharded state every
+~n_inner steps: XLA inserts the collectives for the cross-boundary
+rolls/scatters/gathers automatically. This keeps the allocation code
+identical to the single-device version.
 
-Designed for real multi-chip slices; validated on the 8-virtual-device CPU
-mesh (tests/test_grid_md_sharded.py) and exercised by the driver dryrun.
+Validated against the single-device engine on the 8-virtual-device CPU mesh
+(tests/test_grid_md_sharded.py) and on four GPUs by ``chip_smoke.py --four``.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -39,8 +38,8 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_dense import CellGridFn
-from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_pallas import (
-    make_grid_force_kernel,
+from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_force import (
+    make_grid_force,
 )
 from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.grid_md import (
     GridMD,
@@ -64,7 +63,6 @@ class ShardedGridMD(GridMD):
         sigma: float = 1.0,
         epsilon: float = 1.0,
         dt: float = 1e-3,
-        interpret: Optional[bool] = None,
         compensated: bool = False,
     ):
         super().__init__(
@@ -72,9 +70,7 @@ class ShardedGridMD(GridMD):
             sigma=sigma,
             epsilon=epsilon,
             dt=dt,
-            interpret=interpret,
             compensated=compensated,
-            rows_per_block=1,  # halo exchange is per physical cell row
         )
         self.mesh = mesh
         self.axis_name = axis_name
@@ -84,107 +80,16 @@ class ShardedGridMD(GridMD):
                 f"cells_per_side {self.cps} not divisible by mesh size {self.n_shards}"
             )
         self.rows_local = self.cps // self.n_shards
-        # local-row kernels (explicit-halo mode)
-        self._local_force = make_grid_force_kernel(
-            grid_fn, sigma=sigma, epsilon=epsilon, interpret=interpret,
-            n_rows=self.rows_local,
+        # local-row forces (explicit-halo mode)
+        self._local_force = make_grid_force(
+            grid_fn, n_rows=self.rows_local, **self._force_kw
         ).raw
-        self._local_energy = make_grid_force_kernel(
-            grid_fn, sigma=sigma, epsilon=epsilon, interpret=interpret,
-            n_rows=self.rows_local, with_energy=True,
+        self._local_energy = make_grid_force(
+            grid_fn, n_rows=self.rows_local, with_energy=True, **self._force_kw
         ).raw
 
     def prepare(self, state: GridMDState) -> GridMDState:
         return self.shard_state(state)
-
-    # The single-chip engine rebuilds with the Pallas migrate kernel, which
-    # GSPMD cannot auto-partition. Round-3 ablation on the real chip
-    # (results/sharded_ablation_probe.py) showed the sharded WINDOW costs
-    # nothing — the entire +79% 1-device overhead was the GSPMD rows
-    # permutation (descriptor-bound, ~7.3 ms at N=100k vs 1.44 for the
-    # Pallas kernel). So: keep the allocation + code-grid scatter GSPMD
-    # (rolls, lane-axis cumsums, one int scatter — all cheap and
-    # auto-partitionable), but run the dense permutation INSIDE shard_map:
-    # each device migrates its local rows with the one-row neighbor halos
-    # ppermuted in (the kernel only ever reads prev/self/next x-rows; the
-    # source-frame code grid is halo-exchanged exactly like the fields).
-    def _rebuild_migrate(self, s: GridMDState) -> GridMDState:
-        gs = self.grid_shape
-        xw, yw, scode, occ, _dest, overflow = self._migration_dest(s)
-
-        assert self.n < (1 << 24), "pid-in-f32 packing requires n < 2^24"
-        dtype = s.xg.dtype
-        fields = [xw, yw, s.vxg, s.vyg, s.fxg, s.fyg, s.pid.astype(dtype)]
-        fills = [self.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
-        if s.crx is not None:
-            fields += [s.crx, s.cry, s.cvx, s.cvy]
-            fills += [0.0, 0.0, 0.0, 0.0]
-
-        migrate_raw = self._migrate_call_local(len(fields), fills).raw
-        ax, p = self.axis_name, self.n_shards
-        fwd = [(i, (i - 1) % p) for i in range(p)]  # receive right nbr's 1st row
-        bwd = [(i, (i + 1) % p) for i in range(p)]  # receive left nbr's last row
-
-        def halo(f):
-            prev = jnp.concatenate(
-                [lax.ppermute(f[-1:], ax, bwd), f[:-1]], axis=0
-            )
-            nxt = jnp.concatenate(
-                [f[1:], lax.ppermute(f[0:1], ax, fwd)], axis=0
-            )
-            return prev, nxt
-
-        def local_migrate(code, *fs):
-            cprev, cnext = halo(code)
-            halos = [halo(f) for f in fs]
-            return migrate_raw(
-                (cprev, code, cnext),
-                [h[0] for h in halos],
-                list(fs),
-                [h[1] for h in halos],
-            )
-
-        arr = P(self.axis_name)
-        out = jax.shard_map(
-            local_migrate,
-            mesh=self.mesh,
-            in_specs=(arr,) * (1 + len(fields)),
-            out_specs=(arr,) * len(fields),
-            check_vma=False,
-        )(scode, *fields)
-
-        zg = jnp.zeros(gs, dtype)
-        comp = (
-            dict(crx=out[7], cry=out[8], cvx=out[9], cvy=out[10])
-            if s.crx is not None
-            else {}
-        )
-        return s.replace(
-            xg=out[0], yg=out[1], vxg=out[2], vyg=out[3],
-            fxg=out[4], fyg=out[5],
-            occ=occ,
-            pid=out[6].astype(jnp.int32),
-            dispx=zg, dispy=zg,
-            dmax2=jnp.zeros((), dtype),
-            overflow=overflow,
-            **comp,
-        )
-
-    def _migrate_call_local(self, n_fields: int, fills):
-        """Cached LOCAL-rows migrate kernel (n_rows = rows per device)."""
-        key = ("local", n_fields, tuple(fills))
-        cached = self._migrate_cache.get(key)
-        if cached is None:
-            from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.migrate_pallas import (
-                make_migrate_kernel,
-            )
-
-            cached = make_migrate_kernel(
-                self.cps, self.cap, 1, n_fields, fills,
-                interpret=self._interpret, n_rows=self.rows_local,
-            )
-            self._migrate_cache[key] = cached
-        return cached
 
     # -- sharding helpers -----------------------------------------------------
     def _state_specs(self, state: GridMDState):

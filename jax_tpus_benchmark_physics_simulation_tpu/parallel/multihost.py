@@ -25,8 +25,8 @@ def init_multihost(
     """Initialize jax.distributed. Returns True when distributed mode is
     active with more than one process.
 
-    With no arguments, relies on the launcher environment (GKE / TPU-VM pods
-    auto-detect); a ``RuntimeError`` from double initialization is tolerated
+    With no arguments, relies on the launcher environment (cluster
+    auto-detection); a ``RuntimeError`` from double initialization is tolerated
     (idempotent use), but genuine failures — bad coordinator address,
     mismatched process counts — PROPAGATE: swallowing them (round-1 behavior)
     turned a misconfigured cluster into a silent single-host run.

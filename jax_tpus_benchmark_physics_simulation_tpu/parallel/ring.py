@@ -1,10 +1,10 @@
 """Ring pairwise-force pass: the multi-chip O(N^2) interaction.
 
 The reference cannot compute interacting forces across devices at all (its
-pmap use is embarrassingly parallel, SURVEY.md §2g). This is the TPU-native
-answer (SURVEY.md §5 "sequence parallelism of this domain"): shard particles
-over the mesh; each of P devices holds N/P particles; rotate a copy of the
-shard around the ICI ring with ``lax.ppermute`` for P rounds, accumulating
+pmap use is embarrassingly parallel, SURVEY.md §2g). This is the answer of
+SURVEY.md §5 ("sequence parallelism of this domain"): shard particles over
+the mesh; each of P devices holds N/P particles; rotate a copy of the shard
+around the device ring with ``lax.ppermute`` for P rounds, accumulating
 partial forces each round — ring attention's dataflow applied to forces.
 Compute is O(N^2 / P) per device, memory O(N / P), and the permute overlaps
 with the pair-block compute under XLA's async collectives.

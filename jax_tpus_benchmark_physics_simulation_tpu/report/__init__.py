@@ -1,3 +1,6 @@
-from jax_tpus_benchmark_physics_simulation_tpu.report import console, export, plots, media
+"""Console tables, CSV/JSON export, plots and media. ``plots`` and ``media``
+need matplotlib, so they load only when imported by name."""
 
-__all__ = ["console", "export", "plots", "media"]
+from jax_tpus_benchmark_physics_simulation_tpu.report import console, export
+
+__all__ = ["console", "export"]

@@ -20,8 +20,7 @@ def write_csv(results: List[dict], path: str, append: bool = False) -> None:
 
     ``append=True`` reuses an existing file's header (extra keys in the new
     rows are dropped to keep the columns aligned) so a sweep split across
-    processes — isolating ops that can crash the TPU worker — lands in one
-    file."""
+    runs lands in one file."""
     if not results:
         return
     existing_header = None

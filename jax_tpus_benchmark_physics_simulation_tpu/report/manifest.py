@@ -43,6 +43,22 @@ def _devices() -> list:
         return []
 
 
+def _gpu() -> Optional[str]:
+    """nvidia-smi ``name, power.limit`` beside ``device_kind`` (None off GPU)."""
+    try:
+        import jax
+
+        if jax.default_backend() != "gpu":
+            return None
+        from jax_tpus_benchmark_physics_simulation_tpu.bench.sysinfo import (
+            gpu_name_and_power_limit,
+        )
+
+        return gpu_name_and_power_limit()
+    except Exception:
+        return None
+
+
 def _jsonable(v: Any):
     if dataclasses.is_dataclass(v) and not isinstance(v, type):
         return {f.name: _jsonable(getattr(v, f.name)) for f in dataclasses.fields(v)}
@@ -71,6 +87,7 @@ def write_manifest(
         "argv": sys.argv,
         "git_rev": _git_rev(),
         "devices": _devices(),
+        "gpu_name_power_limit": _gpu(),
         "config": _jsonable(config),
         "results": _jsonable(results),
     }

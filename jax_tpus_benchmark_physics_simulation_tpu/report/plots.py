@@ -39,7 +39,7 @@ STYLE_MAP = {
 }
 
 
-def plot_benchmark_results(results: List[dict], output: str = "tpu_benchmark_results.png", show: bool = False) -> Optional[str]:
+def plot_benchmark_results(results: List[dict], output: str = "benchmark_results.png", show: bool = False) -> Optional[str]:
     if not results:
         return None
     tests = sorted({r["test"] for r in results})
@@ -50,7 +50,7 @@ def plot_benchmark_results(results: List[dict], output: str = "tpu_benchmark_res
     all_cores = sorted({r["cores"] for r in results})
 
     fig, (ax_perf, ax_time) = plt.subplots(2, 1, figsize=(14, 12), sharex=True)
-    fig.suptitle("TPU Benchmark Results", fontsize=18, weight="bold")
+    fig.suptitle("Benchmark Results", fontsize=18, weight="bold")
 
     ax_perf.set_title("Performance (Higher is Better)", fontsize=14)
     ax_perf.set_ylabel("TFLOPS", fontsize=12, color="tab:cyan")

@@ -7,8 +7,8 @@ from __future__ import annotations
 import importlib
 from typing import List, Tuple
 
-REQUIRED_LIBRARIES = ["jax", "numpy", "flax", "optax"]
-OPTIONAL_LIBRARIES = ["rich", "psutil", "matplotlib", "pandas", "imageio", "scipy", "orbax.checkpoint"]
+REQUIRED_LIBRARIES = ["jax", "numpy", "optax"]
+OPTIONAL_LIBRARIES = ["rich", "psutil", "matplotlib", "imageio", "scipy", "orbax.checkpoint"]
 
 
 def probe(libs: List[str]) -> List[Tuple[str, bool]]:

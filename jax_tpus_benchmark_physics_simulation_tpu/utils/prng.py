@@ -1,10 +1,9 @@
-"""PRNG implementation selection.
+"""PRNG implementation selection: one default on every platform.
 
-Measured on TPU v5e: threefry2x32 costs ~4.4 ms per (10000, 3) Metropolis
-sweep inside a fori_loop; the hardware-friendly ``rbg`` implementation runs
-the identical sweep in 0.35 ms (12x). ``auto`` picks rbg on TPU and the
-fully-reproducible partitionable threefry elsewhere (tests run threefry on
-CPU, so golden values stay stable).
+``auto`` is the partitionable ``threefry2x32`` (bit-reproducible across
+platforms and shardings; tests pin golden values on it). ``rbg`` stays
+selectable; PERF.md records the on-card comparison that kept threefry as
+the default.
 """
 
 from __future__ import annotations
@@ -14,8 +13,6 @@ import jax
 
 def make_key(seed: int, impl: str = "auto") -> jax.Array:
     """``impl``: auto | threefry | rbg."""
-    if impl == "auto":
-        impl = "rbg" if jax.default_backend() == "tpu" else "threefry2x32"
-    elif impl == "threefry":
+    if impl in ("auto", "threefry"):
         impl = "threefry2x32"
     return jax.random.key(seed, impl=impl)

@@ -70,13 +70,6 @@ class TestOps:
             np.testing.assert_allclose(np.asarray(out), np.asarray(x) + 1.0)
         assert op.bytes_per_call == 2 * op.n_elems * 4
 
-    def test_bandwidth_op_pallas_copy(self):
-        op = ops.make_bandwidth_op(4096, mode="pallas_copy", chunk=1024)
-        x = jnp.arange(op.n_elems, dtype=jnp.float32)
-        out = op(x)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(x))
-        assert op.bytes_per_call == 2 * op.n_elems * 4
-
 
 class TestSweep:
     def test_core_candidates(self):
@@ -116,8 +109,8 @@ class TestSweep:
         assert plot and os.path.getsize(plot) > 0
 
     def test_ops_filter_and_csv_append(self, tmp_path):
-        """--ops isolates worker-crashing ops per process; --csv-append
-        merges the quarantine run into the main CSV (run_r3_sweep.sh)."""
+        """--ops runs a subset; --csv-append merges a second run into the
+        same CSV."""
         base = dict(warmup=0, steps=1, matrix_size=64, matrix_depth=2,
                     conv_size=16, batch_size=2, max_cores=1)
         main = run_sweep(BenchConfig(ops=("2D", "Bandwidth"), **base),
@@ -156,43 +149,3 @@ def test_system_info():
     info = system_info()
     assert info["backend"] == "cpu"
     assert info["device_count"] == 8
-
-
-class TestIsolatedSweep:
-    """Crash-isolated sweep (bench/isolate.py + bench/sweep_worker.py):
-    the in-product generalization of the reference's per-op salvage
-    (tpus_benchmark...:221-235, :696-703) — a TPU-worker-process death
-    costs one loud failure row, not the sweep."""
-
-    CFG = dict(warmup=0, steps=1, matrix_size=64, matrix_depth=2,
-               conv_size=16, batch_size=2, max_cores=1)
-
-    def test_clean_run(self, monkeypatch):
-        from jax_tpus_benchmark_physics_simulation_tpu.bench.isolate import (
-            run_sweep_isolated,
-        )
-
-        monkeypatch.delenv("JTPS_BENCH_CRASH_OP", raising=False)
-        cfg = BenchConfig(ops=("2D", "Conv"), **self.CFG)
-        rows, sysinfo, devrows = run_sweep_isolated(cfg, log=lambda m: None)
-        assert {r["test"] for r in rows} == {"2D", "Conv"}
-        assert all("error" not in r for r in rows)
-        assert sysinfo.get("backend") == "cpu"
-        assert len(devrows) == 8
-
-    def test_worker_crash_is_one_loud_row(self, monkeypatch):
-        """Kill the worker at the start of Conv: the parent must record a
-        failure row for Conv, respawn, and still produce the 2D_FFT row."""
-        from jax_tpus_benchmark_physics_simulation_tpu.bench.isolate import (
-            run_sweep_isolated,
-        )
-
-        monkeypatch.setenv("JTPS_BENCH_CRASH_OP", "Conv")
-        cfg = BenchConfig(ops=("2D", "Conv", "2D_FFT"), **self.CFG)
-        msgs = []
-        rows, _, _ = run_sweep_isolated(cfg, log=msgs.append)
-        by_test = {r["test"]: r for r in rows}
-        assert set(by_test) == {"2D", "Conv", "2D_FFT"}
-        assert "crashed" in by_test["Conv"]["error"]
-        assert "avg_ms" in by_test["2D"] and "avg_ms" in by_test["2D_FFT"]
-        assert any("DIED" in m for m in msgs)

@@ -14,7 +14,7 @@ from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_dense import (
     make_cell_grid_fn,
     make_lj_force_cell_dense,
 )
-from tests.test_pallas_kernels import lattice_positions
+from tests.helpers import lattice_positions
 
 
 def setup(n=400, rho=0.4, cutoff=2.5, skin=0.4, seed=0, dim=2):

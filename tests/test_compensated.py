@@ -13,7 +13,7 @@ from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_dense import (
     make_cell_grid_fn,
 )
 from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.grid_md import GridMD
-from tests.test_pallas_kernels import lattice_positions
+from tests.helpers import lattice_positions
 
 
 def setup(compensated, n=400, rho=0.4, dt=1e-3, kt=0.5):
@@ -42,7 +42,7 @@ def test_short_trajectories_agree():
 def test_energy_conservation_compensated():
     """Compensated mode conserves energy over a 5000-step scan. (At this
     scale plain-vs-compensated differ only at noise level; the secular-drift
-    win shows at 1M-step horizons — results/RESULTS.md. Here we assert the
+    win shows at 1M-step horizons. Here we assert the
     compensated path is correct and tight.)"""
     md, gs = setup(True, dt=2e-3, kt=1.0)
     # window sized by the engine's own 8-sigma rule (auto_inner_steps at

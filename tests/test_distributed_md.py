@@ -15,7 +15,7 @@ from jax_tpus_benchmark_physics_simulation_tpu.models import lj_fluid
 from jax_tpus_benchmark_physics_simulation_tpu.parallel.distributed_md import (
     run_distributed_md,
 )
-from tests.test_pallas_kernels import lattice_positions
+from tests.helpers import lattice_positions
 
 
 def test_matches_local_dense():

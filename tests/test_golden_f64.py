@@ -131,7 +131,7 @@ class TestMDGoldenX64:
             make_cell_grid_fn,
         )
         from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.grid_md import GridMD
-        from tests.test_pallas_kernels import lattice_positions
+        from tests.helpers import lattice_positions
 
         n, rho, kt, dt = 400, 0.5, 0.5, 1e-3
         box = float(np.sqrt(n / rho))

@@ -6,11 +6,12 @@ import pytest
 pytestmark = pytest.mark.slow  # compile-heavy: excluded from the fast tier
 
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def test_entry_compiles_and_steps():

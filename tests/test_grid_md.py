@@ -2,10 +2,6 @@
 correctness (migration vs sort oracle), violation detection, and the
 lj_fluid 'grid' dispatch."""
 
-import pytest
-
-pytestmark = pytest.mark.slow  # compile-heavy: excluded from the fast tier
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +12,7 @@ from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_dense import (
     make_cell_grid_fn,
 )
 from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.grid_md import GridMD
-from tests.test_pallas_kernels import lattice_positions
+from tests.helpers import lattice_positions
 
 
 def setup(n=400, rho=0.5, dt=1e-3, kt=0.5, seed=0):
@@ -168,101 +164,6 @@ class TestLJFluidGridDispatch:
         np.testing.assert_allclose(np.asarray(pe_g), np.asarray(pe_d), rtol=1e-3, atol=0.05)
 
 
-class TestPackedLayout:
-    """Lane-packed grid layout (rows_per_block > 1, cell_pallas_packed.py):
-    parity with the base R=1 engine across block counts, including G >= 2
-    (block-crossing row pairs + reactions) and the packed migration rebuild."""
-
-    def _engines(self, n=1200, rho=0.5, dt=1e-3, kt=1.0, seed=2):
-        # rho/n chosen so cps has several divisors: box=49.0 -> cps=16
-        box = float(np.sqrt(n / rho))
-        pos = jnp.mod(lattice_positions(n, box, seed=seed), box)
-        vel = np.sqrt(kt) * jax.random.normal(jax.random.PRNGKey(seed + 1), (n, 2))
-        gf = make_cell_grid_fn(box, 2.5, n, dim=2)
-        assert gf.cells_per_side % 4 == 0, gf.cells_per_side
-        return gf, pos, vel
-
-    def test_forces_match_base_all_block_counts(self):
-        gf, pos, vel, = self._engines()
-        base = GridMD(gf, rows_per_block=1)
-        ref = base.init(pos, vel)
-
-        def occupied_forces(md, gs):
-            f = np.asarray(gs.fxg.reshape(-1))
-            return np.sort(f[np.asarray(gs.occ.reshape(-1)) > 0.5])
-
-        f_ref = occupied_forces(base, ref)
-        cps = gf.cells_per_side
-        for rpb in (2, 4, cps // 2, cps):  # G = 8, 4, 2, 1
-            md = GridMD(gf, rows_per_block=rpb)
-            gs = md.init(pos, vel)
-            assert not bool(gs.overflow)
-            np.testing.assert_allclose(
-                occupied_forces(md, gs), f_ref, rtol=1e-5, atol=1e-5,
-                err_msg=f"rpb={rpb}",
-            )
-            # per-particle parity (order-independent via positions/pid gather)
-            np.testing.assert_allclose(
-                np.asarray(md.positions(gs)), np.asarray(base.positions(ref)), rtol=1e-6
-            )
-
-    def test_packed_trajectory_matches_base(self):
-        """300 chunked steps (migration rebuilds firing) on the packed layout
-        == base layout, per-particle."""
-        gf, pos, vel = self._engines(kt=1.0)
-        base = GridMD(gf, dt=2e-3, rows_per_block=1)
-        md = GridMD(gf, dt=2e-3, rows_per_block=4)  # G = 4
-        sb = base.init(pos, vel)
-        sp = md.init(pos, vel)
-        run_b = jax.jit(lambda s: jax.lax.fori_loop(0, 30, lambda i, t: base.make_chunk_step(10)(t), s))
-        run_p = jax.jit(lambda s: jax.lax.fori_loop(0, 30, lambda i, t: md.make_chunk_step(10)(t), s))
-        sb = run_b(sb)
-        sp = run_p(sp)
-        assert not bool(sp.overflow) and not bool(sb.overflow)
-        np.testing.assert_allclose(
-            np.asarray(md.positions(sp)), np.asarray(base.positions(sb)),
-            rtol=2e-4, atol=2e-4,
-        )
-        # energies agree too (packed energy kernel)
-        np.testing.assert_allclose(
-            float(md.potential_energy(sp)), float(base.potential_energy(sb)), rtol=1e-4
-        )
-
-    def test_packed_migration_matches_sort_rebuild(self):
-        gf, pos, vel = self._engines(seed=7, kt=0.5)
-        md = GridMD(gf, rows_per_block=4)
-        gs = md.init(pos, vel)
-        for _ in range(40):
-            gs = md.step_nocheck(gs)
-        mig = md._rebuild_migrate(gs)
-        srt = md._rebuild(gs)
-        assert not bool(mig.overflow)
-        np.testing.assert_allclose(
-            np.asarray(md.positions(mig)), np.asarray(md.positions(srt)), rtol=1e-6
-        )
-        np.testing.assert_allclose(
-            np.asarray(md.velocities(mig)), np.asarray(md.velocities(srt)), rtol=1e-6
-        )
-
-    def test_choose_rows_per_block(self):
-        from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_pallas_packed import (
-            choose_rows_per_block,
-        )
-
-        def util(cps, r):
-            lanes = ((r * cps + 127) // 128) * 128
-            return r * cps / lanes
-
-        # N=16k scale: base utilization 38% -> packed >= 89%
-        r49 = choose_rows_per_block(49)
-        assert 49 % r49 == 0 and util(49, r49) >= 0.89
-        # N=1M scale: base 75% -> packed >= 95%
-        r385 = choose_rows_per_block(385)
-        assert 385 % r385 == 0 and util(385, r385) >= 0.95
-        assert choose_rows_per_block(121) == 1   # N=100k: already 94.5%
-        assert choose_rows_per_block(128) == 1
-
-
 class TestAutoChunkParams:
     """(window, gate) coupled sizing: the violation margin invariant
     k * dt * 8*sqrt(kt) <= (0.5 - gate) * skin must hold for every output,
@@ -294,8 +195,8 @@ class TestAutoChunkParams:
     def test_size_aware_gate(self):
         k_big, gate_big = self._md(n=100_000).auto_chunk_params(kt=1.0)
         k_small, gate_small = self._md(n=16384).auto_chunk_params(kt=1.0)
-        assert gate_big == 0.40 and k_big == 4    # round-3 measured optimum at N=100k
-        assert gate_small == 0.35 and k_small == 7  # measured optimum at N=16k
+        assert gate_big == 0.40 and k_big == 4    # preferred gate at N >= 50k
+        assert gate_small == 0.35 and k_small == 7  # preferred gate below
 
     def test_large_dt_fallback(self):
         k, gate = self._md(dt=2e-2).auto_chunk_params(kt=1.0)

@@ -2,8 +2,8 @@
 correctness (migration vs sort oracle), trajectory parity vs dense, energy
 conservation, violation detection, and the lj_fluid 3D 'grid' dispatch.
 
-Mirror of tests/test_grid_md.py for the packed-lane 3D engine
-(ops/kernels/grid_md3.py, cell_pallas3.py)."""
+Mirror of tests/test_grid_md.py for the 3D engine
+(ops/kernels/grid_md3.py, cell_force.py)."""
 
 import pytest
 
@@ -20,7 +20,7 @@ from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_dense import (
     make_cell_grid_fn,
 )
 from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.grid_md3 import GridMD3
-from tests.test_pallas_kernels import lattice_positions
+from tests.helpers import lattice_positions
 
 
 def setup(n=1000, rho=0.25, dt=1e-3, kt=0.5, seed=0, **gridkw):
@@ -47,104 +47,6 @@ class TestGridMD3:
         f_ref = np.asarray(lj.force(pos))
         f_grid = np.asarray(md.forces(gs))
         np.testing.assert_allclose(f_grid, f_ref, rtol=2e-4, atol=2e-4)
-
-    def test_forces_match_with_a_chunking(self):
-        """VMEM a-chunking must not change the math."""
-        box, pos, vel, _ = setup()
-        gf = make_cell_grid_fn(box, 2.5, 1000, dim=3)
-        md = GridMD3(gf, dt=1e-3)
-        from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.cell_pallas3 import (
-            make_grid_force_kernel3,
-        )
-
-        chunked = make_grid_force_kernel3(gf, a_chunk=8)
-        gs = md.init(pos, vel)
-        fx, fy, fz = chunked(gs.xg, gs.yg, gs.zg)
-        np.testing.assert_allclose(np.asarray(fx), np.asarray(gs.fxg), rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(fz), np.asarray(gs.fzg), rtol=1e-5, atol=1e-5)
-
-    def test_static_cov_matches_dynamic(self):
-        """The straight-line static-coverage kernel (cell_pallas3.
-        _static_kernel3) must match the dynamic-bound kernel: same forces
-        at init, same trajectory through rebuilds (chunk driver)."""
-        box, pos, vel, md = setup(kt=0.5)
-        gs = md.init(pos, vel)
-        cov = min(-(-int(gs.max_occ) // 8) * 8, md.cap)
-        md_s = GridMD3(md.grid_fn, dt=md.dt, static_cov=cov)
-        gs_s = md_s.init(pos, vel)
-        assert not bool(gs_s.overflow)
-        np.testing.assert_allclose(
-            np.asarray(gs_s.fxg), np.asarray(gs.fxg), rtol=1e-4, atol=1e-4
-        )
-        np.testing.assert_allclose(
-            np.asarray(gs_s.fzg), np.asarray(gs.fzg), rtol=1e-4, atol=1e-4
-        )
-        chunk_d = md.make_chunk_step(10)
-        chunk_s = md_s.make_chunk_step(10)
-        run_d = jax.jit(lambda s: jax.lax.fori_loop(0, 10, lambda i, t: chunk_d(t), s))
-        run_s = jax.jit(lambda s: jax.lax.fori_loop(0, 10, lambda i, t: chunk_s(t), s))
-        gs, gs_s = run_d(gs), run_s(gs_s)
-        assert not bool(gs_s.overflow)
-        d = np.abs(np.asarray(md.positions(gs)) - np.asarray(md_s.positions(gs_s)))
-        d = np.minimum(d, box - d)
-        np.testing.assert_allclose(d, 0.0, atol=1e-3)
-
-    def test_static_cov_underflow_is_loud(self):
-        """A static coverage below the actual max occupancy must raise the
-        overflow flag (silent pair loss is banned) — at init and at
-        rebuilds."""
-        box, pos, vel, md = setup(rho=0.6)
-        mo = int(md.init(pos, vel).max_occ)
-        assert mo > 8, "setup too dilute for this test"
-        md_s = GridMD3(md.grid_fn, dt=md.dt, static_cov=8)
-        gs_s = md_s.init(pos, vel)
-        assert bool(gs_s.overflow)
-        # and via the rebuild path
-        gs_ok = md_s.init(pos, vel).replace(overflow=jnp.zeros((), bool))
-        gs_rb = md_s._rebuild_migrate(gs_ok)
-        assert bool(gs_rb.overflow)
-
-    def test_static_auto_hybrid_matches_dynamic(self):
-        """static_cov='auto' (the lj_fluid 3D production default): the
-        hybrid engine must track the dynamic engine exactly through both
-        the gated and the fixed-cadence production drivers, with no
-        overflow (the fallback replaces the pure mode's loud flag)."""
-        box, pos, vel, md = setup(kt=0.5)
-        md_h = GridMD3(md.grid_fn, dt=md.dt, static_cov="auto")
-        assert md_h._static_fallback and md_h.static_cov % 8 == 0
-        gs, gs_h = md.init(pos, vel), md_h.init(pos, vel)
-        assert not bool(gs_h.overflow)
-        run_d = jax.jit(md.make_production_run(40, 2, gate_frac=0.35))
-        run_h = jax.jit(md_h.make_production_run(40, 2, gate_frac=0.35))
-        out_d, out_h = run_d(gs), run_h(gs_h)
-        assert not bool(out_h.overflow)
-        d = np.abs(np.asarray(md.positions(out_d)) - np.asarray(md_h.positions(out_h)))
-        d = np.minimum(d, box - d)
-        np.testing.assert_allclose(d, 0.0, atol=1e-3)
-        # fixed-cadence driver (auto_cadence, incl. a remainder block)
-        R = md_h.auto_cadence(0.5)
-        out_f = jax.jit(md_h.make_production_run_fixed(40, min(R, 27)))(gs_h)
-        assert not bool(out_f.overflow)
-
-    def test_static_fallback_engages_dynamic_branch(self):
-        """A hybrid engine whose coverage is BELOW the actual occupancy
-        must silently (and correctly) run the dynamic fallback: no
-        overflow, trajectory identical to the plain dynamic engine."""
-        box, pos, vel, md = setup(rho=0.6)
-        gs = md.init(pos, vel)
-        assert int(gs.max_occ) > 8, "setup too dilute for this test"
-        md_fb = GridMD3(md.grid_fn, dt=md.dt, static_cov=8, static_fallback=True)
-        gs_fb = md_fb.init(pos, vel)
-        assert not bool(gs_fb.overflow)  # pure mode would flag here
-        run_d = jax.jit(md.make_production_run(30, 2, gate_frac=0.35))
-        run_fb = jax.jit(md_fb.make_production_run(30, 2, gate_frac=0.35))
-        out_d, out_fb = run_d(gs), run_fb(gs_fb)
-        assert not bool(out_fb.overflow)
-        d = np.abs(
-            np.asarray(md.positions(out_d)) - np.asarray(md_fb.positions(out_fb))
-        )
-        d = np.minimum(d, box - d)
-        np.testing.assert_allclose(d, 0.0, atol=1e-3)
 
     def test_fixed_cadence_overrun_is_loud(self):
         """A cadence far past the skin/2 drift horizon must raise the

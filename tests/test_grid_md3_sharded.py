@@ -114,69 +114,3 @@ class TestSharded3Trajectory:
         pos, vel, local, _ = setup()
         with pytest.raises(ValueError):
             ShardedGridMD3(local.grid_fn, make_mesh(3, axis_name="x"))
-
-
-class TestSharded3RebuildDescriptorFree:
-    """3D twin of TestShardedRebuildDescriptorFree (test_grid_md_sharded):
-    the sharded 3D rebuild must stay free of gather/scatter descriptor
-    HLOs (the +1.9%-machinery property measured on-chip cannot silently
-    regress to the descriptor-bound +79% rows path)."""
-
-    @staticmethod
-    def _descriptor_ops(fn, s):
-        import re
-
-        txt = jax.jit(fn).lower(s).compile().as_text()
-        pat = re.compile(r"(?<![\w-])(gather|scatter)\(")
-        return [ln.strip()[:120] for ln in txt.splitlines() if pat.search(ln)]
-
-    def test_sharded_rebuild_is_descriptor_free(self):
-        pos, vel, local, sharded = setup()
-        gss = sharded.shard_state(local.init(pos, vel))
-        bad = self._descriptor_ops(sharded._rebuild_migrate, gss)
-        assert not bad, f"descriptor ops crept into the sharded rebuild: {bad[:5]}"
-
-    def test_guard_detects_round2_rows_path(self):
-        pos, vel, local, _ = setup()
-        gs = local.init(pos, vel)
-        bad = self._descriptor_ops(local._rebuild_migrate_rows, gs)
-        assert bad, "detector no longer sees the descriptor-bound rows path"
-
-
-class TestSharded3StaticCov:
-    """Hybrid static-coverage (static_cov='auto', the lj_fluid production
-    default since round 5) on the sharded engine: trajectory parity vs the
-    plain dynamic sharded engine through the cond-free production driver
-    (the exact path lj_fluid.production dispatches multi-device)."""
-
-    def test_hybrid_production_matches_dynamic(self):
-        pos, vel, local, sharded = setup()
-        hybrid = ShardedGridMD3(
-            local.grid_fn, make_mesh(8, axis_name="x"), static_cov="auto"
-        )
-        assert hybrid._static_fallback and hybrid.static_cov % 8 == 0
-        gs_d = sharded.shard_state(local.init(pos, vel))
-        gs_h = hybrid.shard_state(local.init(pos, vel))
-        run_d = jax.jit(sharded.make_production_run(40, 2, gate_frac=0.35))
-        run_h = jax.jit(hybrid.make_production_run(40, 2, gate_frac=0.35))
-        out_d, out_h = run_d(gs_d), run_h(gs_h)
-        assert not bool(out_h.overflow)
-        box = local.box
-        p_d = np.asarray(local.positions(out_d))
-        p_h = np.asarray(local.positions(out_h))
-        d = np.abs(p_d - p_h)
-        d = np.minimum(d, box - d)
-        np.testing.assert_allclose(d, 0.0, atol=1e-3)
-
-    def test_pure_static_underflow_is_loud_sharded(self):
-        """Pure static mode (int cov, no fallback) must flag under-coverage
-        through the SHARDED rebuild path too."""
-        pos, vel, local, _ = setup()
-        mo = int(local.init(pos, vel).max_occ)
-        if mo <= 8:
-            pytest.skip("setup too dilute to exceed cov 8")
-        pure = ShardedGridMD3(
-            local.grid_fn, make_mesh(8, axis_name="x"), static_cov=8
-        )
-        gs = pure.shard_state(pure.init(pos, vel))
-        assert bool(gs.overflow)

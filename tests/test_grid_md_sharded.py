@@ -1,9 +1,5 @@
 """Sharded grid MD (8-device CPU mesh) vs the single-device engine."""
 
-import pytest
-
-pytestmark = pytest.mark.slow  # compile-heavy: excluded from the fast tier
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +13,7 @@ from jax_tpus_benchmark_physics_simulation_tpu.parallel.grid_md_sharded import (
     ShardedGridMD,
 )
 from jax_tpus_benchmark_physics_simulation_tpu.parallel.mesh import make_mesh
-from tests.test_pallas_kernels import lattice_positions
+from tests.helpers import lattice_positions
 
 
 def setup(n=1600, cutoff=2.5, skin=0.4, dt=1e-3, kt=0.5, p=8):
@@ -30,7 +26,7 @@ def setup(n=1600, cutoff=2.5, skin=0.4, dt=1e-3, kt=0.5, p=8):
     gf = make_cell_grid_fn(box, cutoff, n, dim=2, skin=skin, rho=rho)
     assert gf.cells_per_side % p == 0, gf.cells_per_side
     mesh = make_mesh(p, axis_name="x")
-    local = GridMD(gf, dt=dt, rows_per_block=1)  # layout must match sharded
+    local = GridMD(gf, dt=dt)
     sharded = ShardedGridMD(gf, mesh, dt=dt)
     return pos, vel, local, sharded
 
@@ -110,39 +106,3 @@ class TestShardedTrajectory:
         pos, vel, local, _ = setup()
         with pytest.raises(ValueError):
             ShardedGridMD(local.grid_fn, make_mesh(3, axis_name="x"))
-
-
-class TestShardedRebuildDescriptorFree:
-    """Regression guard for the round-3 sharded-rebuild fix (VERDICT r3
-    weak item 2): the sharded engine rebuilds by running the Pallas migrate
-    kernel INSIDE shard_map with ppermuted halos — ZERO gather/scatter
-    descriptor HLOs, measured +1.9% machinery on-chip
-    (results/sharded_overhead_probe.py). Round 2's GSPMD rows permutation
-    (descriptor-bound, +79%) compiles to big scatter+gather HLOs; this
-    guard fails if the rebuild ever silently falls back to that path."""
-
-    @staticmethod
-    def _descriptor_ops(fn, s):
-        import re
-
-        txt = jax.jit(fn).lower(s).compile().as_text()
-        # genuine gather(/scatter( HLOs only: exclude collectives
-        # (all-gather, reduce-scatter) via the leading-hyphen guard
-        pat = re.compile(r"(?<![\w-])(gather|scatter)\(")
-        return [ln.strip()[:120] for ln in txt.splitlines() if pat.search(ln)]
-
-    def test_sharded_rebuild_is_descriptor_free(self):
-        pos, vel, local, sharded = setup()
-        gss = sharded.shard_state(local.init(pos, vel))
-        bad = self._descriptor_ops(sharded._rebuild_migrate, gss)
-        assert not bad, f"descriptor ops crept into the sharded rebuild: {bad[:5]}"
-
-    def test_guard_detects_round2_rows_path(self):
-        """Self-validation: the detector MUST flag the round-2 rebuild
-        (inverse-index scatter + row gather, still kept as
-        GridMD._rebuild_migrate_rows) — otherwise the guard above is
-        vacuous."""
-        pos, vel, local, _ = setup()
-        gs = local.init(pos, vel)
-        bad = self._descriptor_ops(local._rebuild_migrate_rows, gs)
-        assert bad, "detector no longer sees the descriptor-bound rows path"

@@ -1,4 +1,4 @@
-"""Cross-implementation MD consistency: dense XLA vs Pallas vs neighbor-list
+"""Cross-implementation MD consistency: dense XLA vs grid vs neighbor-list
 paths must produce the same trajectories and conserve energy."""
 
 import jax
@@ -26,7 +26,7 @@ def cfg_for(impl, **kw):
     return override(MDConfig(), **base)
 
 
-@pytest.mark.parametrize("impl", ["dense_pallas", "neighbor"])
+@pytest.mark.parametrize("impl", ["grid", "neighbor"])
 def test_trajectory_matches_dense_xla(impl):
     cfg_ref = cfg_for("dense_xla")
     cfg_alt = cfg_for(impl)

@@ -15,7 +15,7 @@ from jax_tpus_benchmark_physics_simulation_tpu.ops.kernels.neighbor_list import 
     make_lj_force_neighbor,
     make_neighbor_fn,
 )
-from tests.test_pallas_kernels import lattice_positions
+from tests.helpers import lattice_positions
 
 
 def setup(n=400, rho=0.8, cutoff=2.5, skin=0.4, seed=0, jitter=0.05):

@@ -21,7 +21,7 @@ from jax_tpus_benchmark_physics_simulation_tpu.parallel import (
     pad_to_multiple,
     shard_along,
 )
-from tests.test_pallas_kernels import lattice_positions
+from tests.helpers import lattice_positions
 
 
 @pytest.fixture(scope="module")
